@@ -5,24 +5,34 @@
 Phases, each printing one JSON line; any failure raises and the run exits
 non-zero without the final line:
 
-  device   CUDA must be present; the card's name and power limit
-  build    nvcc builds every CUDA source of the port into build/
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes of the main path and at edge cases; times from CUDA events
-  train    the port's own train() on the flagship config
-           (configs/kitti_mipnerf360.json, full widths, batch 4096, float32)
-           on the synthetic scene of 8 images of 94x310, for a few steps;
-           every kernel of the path must have been launched
-  render   render_image() of one 94x310 test view in chunks of 16384 rays,
-           held against the same model on the CPU for a few rays
-  profile  two more train steps under torch.profiler: device time per step
-           by kernel and by kind, and the share of the step the card is busy
+  device      CUDA must be present; the card's name and power limit
+  build       nvcc builds every CUDA source of the port into build/, all at once
+  kernels     each kernel against its plain PyTorch version on the card, at the
+              shapes of the paths and at edge cases; times from CUDA events
+  train       the port's own train() on the flagship config
+              (configs/kitti_mipnerf360.json, full widths, batch 4096, float32)
+              on the synthetic scene of 8 images of 94x310, for a few steps;
+              every kernel of the path must have been launched
+  render      render_image() of one 94x310 test view in chunks of 16384 rays,
+              held against the same model on the CPU for a few rays
+  profile     two more mip train steps under torch.profiler: device time per
+              step by kernel and by kind, and the share of the step the card
+              is busy
+  ngp_train   train() on configs/kitti_ngp.json at full width (hash grid
+              L16 F2 T2^19, batch 8192, sample budget 32) on the same scene for
+              20 steps, occupancy refreshes at steps 0 and 16, then a warmup and
+              a sampled refresh timed on their own; 16 K2a launches per step
+  ngp_render  render_image() of one 94x310 view with the trained grid, held
+              against the same model and grid on the CPU for a few rays
+  ngp_profile two more NGP train steps under torch.profiler, then one warmup
+              and one sampled occupancy refresh
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -40,13 +50,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib  # noqa: E402
 from outdoor_nerf_depth_torch.data import rays as rays_lib  # noqa: E402
-from outdoor_nerf_depth_torch.ops import cuda_build, volren_weights  # noqa: E402
+from outdoor_nerf_depth_torch.ops import cuda_build, prefix_scan, volren_weights  # noqa: E402
+from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train import step as step_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.config import load_config  # noqa: E402
 from outdoor_nerf_depth_torch.train.loop import set_full_float32, train  # noqa: E402
 
 CONFIG = "configs/kitti_mipnerf360.json"
+NGP_CONFIG = "configs/kitti_ngp.json"
 STEPS = 6
+NGP_STEPS = 20  # occupancy refreshes before steps 0 and 16
 N_IMAGES, HEIGHT, WIDTH = 8, 94, 310  # the synthetic scene of the mip_4096 shape
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds below.
 HBM_BYTES_PER_S = 3.35e12
@@ -61,8 +74,23 @@ FWD_BYTES, FWD_OPS = 12, 5
 BWD_BYTES, BWD_OPS = 16, 4
 TRAIN_SHAPES = [(4096, 64), (4096, 64), (4096, 32)]  # per step: 2 prop levels + nerf
 RENDER_SHAPE = (16384, 32)  # nerf level of one render chunk (prop levels: S=64)
+NGP_K1_SHAPE = (8192, 128)  # NGP: batch x max_samples, once per step and render chunk
+# K2a: one inclusive scan per hash level on the [points, 8F] table-gradient
+# stream. Per element: read 4 B, write 4 B, one add.
+SCAN_BYTES, SCAN_OPS = 8, 1
+SCAN_PATH = (262144, 16)  # batch 8192 x sample_budget 32 points, 8F = 16 lanes
+SCAN_SHAPES = [SCAN_PATH, (1048576, 16), (16777216, 16),  # path, budget 0, 16.8M rows
+               (1, 8), (7, 8), (4097, 8), (1, 128), (7, 128), (4097, 128)]
+# A float32 prefix sum in any order is off the exact sum by a few ulps of
+# the running sum of |x| (its deepest chain here is ~550 adds at 16.8M rows,
+# and rounding errors of random sign grow as the root of that): 1e-5 of
+# the running |x| sum, for the kernel and the plain version against float64
+# and for the two against each other.
+SCAN_RTOL = 1e-5
+NGP_LEVELS = 16
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
+SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
 
 
 def emit(obj):
@@ -74,27 +102,50 @@ def bound_ms(shape, bytes_per, ops_per):
     return 1e3 * max(n * bytes_per / HBM_BYTES_PER_S, n * ops_per / FP32_FLOPS_PER_S)
 
 
+def linear_flops(modules, n):
+    """Multiply-add FLOPs of every nn.Linear in `modules` on n inputs."""
+    return sum(2 * n * layer.in_features * layer.out_features
+               for m in modules for layer in m.modules() if isinstance(layer, torch.nn.Linear))
+
+
 def mlp_forward_flops(model, n_rays):
     """Multiply-add FLOPs of every field-MLP layer for one forward of n_rays
     (each prop level runs prop_mlp on num_prop_samples, the last level
     nerf_mlp on num_nerf_samples)."""
     levels = [(model.prop_mlp, model.num_prop_samples)] * (model.num_levels - 1)
     levels.append((model.nerf_mlp, model.num_nerf_samples))
-    return sum(
-        2 * n_rays * samples * layer.in_features * layer.out_features
-        for mlp, samples in levels
-        for layer in mlp.modules()
-        if isinstance(layer, torch.nn.Linear)
-    )
+    return sum(linear_flops([mlp], n_rays * samples) for mlp, samples in levels)
+
+
+def ngp_points(model, n_rays):
+    """Points the NGP field evaluates for n_rays: the batch budget, or all slots."""
+    per_ray = model.sample_budget if 0 < model.sample_budget < model.max_samples \
+        else model.max_samples
+    return n_rays * per_ray
+
+
+def ngp_forward_flops(model, n_rays):
+    return linear_flops([model.field], ngp_points(model, n_rays))
 
 
 def device_ms(fn, launches=50, reps=5):
     """Median device time of one call: `launches` calls captured in a CUDA
-    graph, replayed `reps` times between CUDA events."""
+    graph, replayed `reps` times between CUDA events. A call slower than
+    5 ms gets fewer launches, so one replay stays near 250 ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    first = start.elapsed_time(end)
+    launches = max(1, min(launches, int(250.0 / max(first, 1e-3))))
+    reps = reps if first < 100.0 else 2
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        for _ in range(3):
+        for _ in range(3 if first < 100.0 else 1):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
@@ -103,7 +154,6 @@ def device_ms(fn, launches=50, reps=5):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
         start.record()
@@ -132,9 +182,10 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    reports = cuda_build.build([volren_weights.SOURCE])
+    sources = [volren_weights.SOURCE, prefix_scan.SOURCE]
+    reports = cuda_build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [os.path.relpath(cuda_build.library_path(volren_weights.SOURCE), REPO)],
+          "libraries": [os.path.relpath(cuda_build.library_path(s), REPO) for s in sources],
           "ptxas": reports})
 
 
@@ -157,12 +208,37 @@ def _check_pair(tau, g):
     return err_fwd, err_bwd
 
 
+def _check_scan(x):
+    """K2a and torch.cumsum against a float64 scan; errors relative to the
+    running sum of |x| (plus 1, for the all-small start)."""
+    got = prefix_scan.cumsum_cuda(x)
+    plain = prefix_scan.cumsum_plain(x)
+    torch.cuda.synchronize()
+    # float64 reference along the contiguous axis (fast on the card).
+    ref = torch.cumsum(x.double().t().contiguous(), dim=1).t()
+    scale = torch.cumsum(x.abs().double().t().contiguous(), dim=1).t() + 1.0
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite K2a output at {tuple(x.shape)}")
+    err = {
+        "kernel_vs_plain_abs": float((got - plain).abs().max()),
+        "kernel_vs_plain": float(((got.double() - plain.double()).abs() / scale).max()),
+        "kernel_vs_f64": float(((got.double() - ref).abs() / scale).max()),
+        "plain_vs_f64": float(((plain.double() - ref).abs() / scale).max()),
+    }
+    del ref, scale
+    if max(err["kernel_vs_f64"], err["plain_vs_f64"]) > SCAN_RTOL \
+            or err["kernel_vs_plain"] > 2 * SCAN_RTOL:
+        raise AssertionError(f"K2a disagrees at {tuple(x.shape)}: {err} (tol {SCAN_RTOL})")
+    return err
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda shape: 2.0 * torch.rand(shape, generator=gen, device="cuda")
     randn = lambda shape: torch.randn(shape, generator=gen, device="cuda")
     cases = {f"{r}x{s}": rand((r, s)) for r, s in
-             [(4096, 64), (4096, 32), (16384, 32), (16384, 64), (7, 33), (130, 192)]}
+             [(4096, 64), (4096, 32), (16384, 32), (16384, 64), NGP_K1_SHAPE, (7, 33),
+              (130, 192)]}
     saturated = rand((256, 32))
     saturated[:, :4] = 10.0  # an opaque wall: later weights and gradients ~0
     cases["saturated_256x32"] = saturated
@@ -170,9 +246,10 @@ def phase_kernels():
     opaque[:, -1] = float("inf")  # opaque background
     cases["inf_last_256x64"] = opaque
     errors = {name: _check_pair(tau, randn(tau.shape)) for name, tau in cases.items()}
+    del cases
 
     timing = {}
-    for shape in sorted(set(TRAIN_SHAPES + [RENDER_SHAPE])):
+    for shape in sorted(set(TRAIN_SHAPES + [RENDER_SHAPE, NGP_K1_SHAPE])):
         tau, g = rand(shape), randn(shape)
         w, e = volren_weights.weights_from_tau_plain(tau)
         timing[f"{shape[0]}x{shape[1]}"] = {
@@ -183,14 +260,34 @@ def phase_kernels():
             "bwd_plain_ms": device_ms(lambda: volren_weights.weights_from_tau_bwd_plain(g, w, e)),
             "bwd_bound_ms": bound_ms(shape, BWD_BYTES, BWD_OPS),
         }
+
+    scan_errors, scan_timing = {}, {}
+    for shape in SCAN_SHAPES:
+        x = randn(shape)
+        key = f"{shape[0]}x{shape[1]}"
+        scan_errors[key] = _check_scan(x)
+        if shape[0] >= SCAN_PATH[0]:
+            # torch.cumsum is both the plain version and the one library
+            # call computing the function: timed once, reported as both.
+            plain = device_ms(lambda: prefix_scan.cumsum_plain(x))
+            scan_timing[key] = {"ms": device_ms(lambda: prefix_scan.cumsum_cuda(x)),
+                                "plain_ms": plain, "library_ms": plain,
+                                "bound_ms": bound_ms(shape, SCAN_BYTES, SCAN_OPS)}
+        del x
     emit({"phase": "kernels",
           "max_abs_err": {k: {"fwd": f, "bwd": b} for k, (f, b) in errors.items()},
           "tolerance": {"fwd": FWD_ATOL, "bwd": BWD_ATOL},
           "timing": timing,
-          "timing_method": "device time per call: 50 calls in a CUDA graph, median of 5 replays",
+          "timing_method": "device time per call: up to 50 calls in a CUDA graph, median of "
+                           "5 replays (fewer for calls over 5 ms)",
           "library_ms": None,
-          "library_note": "no single PyTorch call computes compositing weights from optical depth"})
-    return errors, timing
+          "library_note": "no single PyTorch call computes compositing weights from optical depth",
+          "scan_errors": scan_errors,
+          "scan_tolerance": {"vs_f64_rel_to_running_abs_sum": SCAN_RTOL,
+                             "kernel_vs_plain": 2 * SCAN_RTOL},
+          "scan_timing": scan_timing,
+          "scan_library": "torch.cumsum(x, dim=0)"})
+    return errors, timing, scan_errors, scan_timing
 
 
 def _flagship_config(exp_dir):
@@ -206,28 +303,46 @@ def _flagship_config(exp_dir):
     return config
 
 
-def phase_train(exp_dir):
-    config = _flagship_config(exp_dir)
-    dataset = datasets_lib.SyntheticDataset(
-        "train", global_batch_size=config.batch_size, n_images=N_IMAGES,
-        height=HEIGHT, width=WIDTH, seed=0,
+def _scene(config, split, seed):
+    return datasets_lib.SyntheticDataset(
+        split, global_batch_size=config.batch_size, n_images=N_IMAGES,
+        height=HEIGHT, width=WIDTH, seed=seed,
     )
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+
+
+def _launches():
+    return {"K1a": volren_weights.FWD_LAUNCHES, "K1b": volren_weights.BWD_LAUNCHES,
+            "K2a": prefix_scan.LAUNCHES}
+
+
+def _reset_launches():
     volren_weights.reset_launch_counts()
-    t0 = time.perf_counter()
-    model, history = train(config, device="cuda", dataset=dataset, log_fn=lambda line: None)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"fwd": volren_weights.FWD_LAUNCHES, "bwd": volren_weights.BWD_LAUNCHES}
-    if launches != {"fwd": 3 * STEPS, "bwd": 3 * STEPS}:
-        raise AssertionError(f"expected 3 K1a and 3 K1b launches per step, got {launches}")
-    if len(history) != STEPS:
-        raise AssertionError(f"expected {STEPS} logged steps, got {len(history)}")
+    prefix_scan.reset_launch_counts()
+
+
+def _check_history(history, steps):
+    if len(history) != steps:
+        raise AssertionError(f"expected {steps} logged steps, got {len(history)}")
     for entry in history:
         losses = {k: v for k, v in entry.items() if k.startswith("loss")}
         if not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f"non-finite loss at step {entry['step']}: {losses}")
+
+
+def phase_train(exp_dir):
+    config = _flagship_config(exp_dir)
+    dataset = _scene(config, "train", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    model, history = train(config, device="cuda", dataset=dataset, log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    if launches != {"K1a": 3 * STEPS, "K1b": 3 * STEPS, "K2a": 0}:
+        raise AssertionError(f"expected 3 K1a and 3 K1b launches per step, got {launches}")
+    _check_history(history, STEPS)
     step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
     steady = statistics.median(step_ms[1:])
     # Backward of a linear layer is two products of the forward's size.
@@ -245,34 +360,28 @@ def phase_train(exp_dir):
     return config, model, launches
 
 
-def phase_render(config, model):
-    test = datasets_lib.SyntheticDataset(
-        "test", global_batch_size=config.batch_size, n_images=N_IMAGES,
-        height=HEIGHT, width=WIDTH, seed=0,
-    )
-    batch = test.image_batch(0)
+def _render_check(config, model, flops_fn, expect, label, rtol):
+    """Render one test view three times (launches counted on the first),
+    then hold 128 of its rays against the same model on the CPU."""
+    batch = _scene(config, "test", 0).image_batch(0)
     n_rays = HEIGHT * WIDTH
     chunks = math.ceil(n_rays / config.render_chunk_size)
     times = []
     for i in range(3):
         if i == 0:
-            volren_weights.reset_launch_counts()
+            _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step_lib.render_image(model, batch, config.render_chunk_size, "cuda")
         times.append(1e3 * (time.perf_counter() - t0))
         if i == 0:
-            launches = {"fwd": volren_weights.FWD_LAUNCHES, "bwd": volren_weights.BWD_LAUNCHES}
-            if launches != {"fwd": 3 * chunks, "bwd": 0}:
-                raise AssertionError(f"expected {3 * chunks} K1a launches, got {launches}")
+            launches = _launches()
+            if launches != expect(chunks):
+                raise AssertionError(f"{label}: expected {expect(chunks)} launches, got {launches}")
     for key, shape in (("rgb", (HEIGHT, WIDTH, 3)), ("distance_mean", (HEIGHT, WIDTH))):
         if out[key].shape != shape or not np.isfinite(out[key]).all():
             raise AssertionError(f"{key}: shape {out[key].shape} or non-finite values")
 
-    # The same weights on the CPU (plain versions of every kernel) for a
-    # few rays. Float32 matmuls of width 1024 sum in another order on the
-    # card, and resampling passes that on: 1e-3 of slack on rgb in [0, 1],
-    # relative 1e-3 on distances.
     n_ref = 128
     sub = rays_lib.map_fields(
         lambda r: r.reshape((n_rays,) + r.shape[2:])[:n_ref].reshape((1, n_ref) + r.shape[2:]),
@@ -282,26 +391,39 @@ def phase_render(config, model):
     cpu = step_lib.render_image(copy.deepcopy(model).cpu(), sub, config.render_chunk_size, "cpu")
     rgb_err = float(np.abs(gpu["rgb"] - cpu["rgb"]).max())
     dist_err = float(np.max(np.abs(gpu["distance_mean"] - cpu["distance_mean"])
-                            / np.abs(cpu["distance_mean"])))
-    if rgb_err > 1e-3 or dist_err > 1e-3:
-        raise AssertionError(f"GPU render disagrees with CPU: rgb {rgb_err}, distance {dist_err}")
-    emit({"phase": "render", "rays": n_rays, "chunk": config.render_chunk_size, "chunks": chunks,
-          "ms": times, "median_ms": statistics.median(times), "launches": launches,
-          "mlp_tflop": mlp_forward_flops(model, n_rays) / 1e12,
-          "mlp_tflop_per_s": mlp_forward_flops(model, n_rays) / 1e12 / (statistics.median(times) / 1e3),
-          "rgb_mean": float(out["rgb"].mean()),
-          "distance_mean_median": float(np.median(out["distance_mean"])),
-          "cpu_reference": {"rays": n_ref, "rgb_max_abs_err": rgb_err,
-                            "distance_mean_max_rel_err": dist_err}})
-    return launches
+                            / np.maximum(np.abs(cpu["distance_mean"]), 1e-6)))
+    if rgb_err > 1e-3 or dist_err > rtol:
+        raise AssertionError(f"{label}: GPU render disagrees with CPU: rgb {rgb_err}, "
+                             f"distance {dist_err}")
+    flop = flops_fn(model, n_rays)
+    return {"phase": label, "rays": n_rays, "chunk": config.render_chunk_size,
+            "chunks": chunks, "ms": times, "median_ms": statistics.median(times),
+            "launches": launches, "mlp_tflop": flop / 1e12,
+            "mlp_tflop_per_s": flop / 1e12 / (statistics.median(times) / 1e3),
+            "rgb_mean": float(out["rgb"].mean()),
+            "distance_mean_median": float(np.median(out["distance_mean"])),
+            "cpu_reference": {"rays": n_ref, "rgb_max_abs_err": rgb_err,
+                              "distance_mean_max_rel_err": dist_err}}
+
+
+def phase_render(config, model):
+    # Float32 matmuls of width 1024 sum in another order on the card, and
+    # resampling passes that on: 1e-3 of slack on rgb in [0, 1], relative
+    # 1e-3 on distances.
+    out = _render_check(config, model, mlp_forward_flops,
+                        lambda chunks: {"K1a": 3 * chunks, "K1b": 0, "K2a": 0}, "render", 1e-3)
+    emit(out)
+    return out["launches"]
 
 
 KERNEL_KINDS = (  # first match wins; names as the CUDA libraries and torch give them
     ("volren_weights", ("weights_fwd_kernel", "weights_bwd_kernel")),  # K1a, K1b
+    ("prefix_scan", ("prefix_scan_",)),  # K2a
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
     ("sort", ("sort", "radix")),
     ("scan", ("scan", "cumsum")),
     ("reduce", ("reduce",)),
+    ("gather_scatter", ("index", "gather", "scatter")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
 
@@ -314,11 +436,48 @@ def _kind(name):
     return "other"
 
 
-def phase_profile(config, model, steps=2):
-    dataset = datasets_lib.SyntheticDataset(
-        "train", global_batch_size=config.batch_size, n_images=N_IMAGES,
-        height=HEIGHT, width=WIDTH, seed=1,
-    )
+def _profile(label, work, steps, step_tflop=None):
+    """Run `work(i)` for i < steps under torch.profiler; emit device time per
+    step by kind and kernel, the busy share, and the ops (with their input
+    shapes) whose kernels took the most device time."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            work(i)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if device_total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    by_kind = {}
+    for e in kernels:
+        kind = _kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
+           and e.self_device_time_total > 0]
+    top_ops = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    emit({"phase": label, "steps": steps, "wall_ms_per_step": wall_ms,
+          "device_ms_per_step": device_total, "device_busy_share": device_total / wall_ms,
+          "matmul_tflop_per_s_while_running": step_tflop / (by_kind.get("matmul", 0.0) / 1e3)
+          if step_tflop and by_kind.get("matmul") else None,
+          "device_ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+          "device_share_by_kind": {k: v / device_total for k, v in by_kind.items()},
+          "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+          "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                           "calls_per_step": e.count / steps} for e in top],
+          "top_ops": [{"op": e.key, "input_shapes": str(e.input_shapes)[:160],
+                       "device_ms_per_step": e.self_device_time_total / 1e3 / steps,
+                       "calls_per_step": e.count / steps} for e in top_ops]})
+
+
+def phase_profile(config, model, step_tflop, label="profile", steps=2):
+    """Two train steps (after one unprofiled) under the profiler."""
+    dataset = _scene(config, "train", 1)
     optimizer, lr_fn = step_lib.make_optimizer(config, model)
     train_step = step_lib.make_train_step(config, model, optimizer, lr_fn,
                                           cameras=dataset.cameras_on("cuda"))
@@ -326,56 +485,160 @@ def phase_profile(config, model, steps=2):
     batches = [rays_lib.to_device(dataset.sample_batch(), "cuda") for _ in range(steps + 1)]
     train_step(batches[0], 0, 0.5, gen)
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            train_step(batches[i + 1], i + 1, 0.5, gen)
+    _profile(label, lambda i: train_step(batches[i + 1], i + 1, 0.5, gen), steps, step_tflop)
+
+
+def _ngp_config(exp_dir):
+    config = load_config(NGP_CONFIG, ["dataset=synthetic", f"max_steps={NGP_STEPS}",
+                                      "print_every=1", f"exp_dir={exp_dir}"])
+    mp, fp = config.model_params, config.model_params["field_params"]
+    expected = (mp["scale"], mp["max_samples"], mp["n_candidates"], mp["sample_budget"],
+                fp["n_levels"], fp["n_features"], fp["log2_table_size"],
+                fp["base_resolution"], fp["hidden_width"], config.batch_size,
+                config.compute_dtype, config.occupancy_update_every)
+    if expected != (8.0, 128, 512, 32, NGP_LEVELS, 2, 19, 16, 64, 8192, "float32", 16):
+        raise AssertionError(f"{NGP_CONFIG} is no longer the full-width NGP shape: {expected}")
+    return config
+
+
+@contextlib.contextmanager
+def _record_scan_shapes(shapes):
+    """Record the shape of every K2a launch (the wrapper is called as usual)."""
+    launch = prefix_scan.cumsum_cuda
+
+    def recording(x):
+        shapes.add(tuple(x.shape))
+        return launch(x)
+
+    prefix_scan.cumsum_cuda = recording
+    try:
+        yield
+    finally:
+        prefix_scan.cumsum_cuda = launch
+
+
+def _occupied_share(model):
+    grid = model.occupancy
+    thresh = torch.clamp(occ_lib.mean_density(grid), max=model.density_threshold)
+    return float((grid > thresh).float().mean())
+
+
+def phase_ngp_train(exp_dir):
+    config = _ngp_config(exp_dir)
+    dataset = _scene(config, "train", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    scan_shapes = set()
+    t0 = time.perf_counter()
+    with _record_scan_shapes(scan_shapes):
+        model, history = train(config, device="cuda", dataset=dataset, log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launches()
+    want = {"K1a": NGP_STEPS, "K1b": NGP_STEPS, "K2a": NGP_LEVELS * NGP_STEPS}
+    if launches != want:
+        raise AssertionError(f"expected {want} launches in {NGP_STEPS} NGP steps, got {launches}")
+    if scan_shapes != {SCAN_PATH}:
+        raise AssertionError(f"K2a ran at {scan_shapes}, expected only {SCAN_PATH}")
+    _check_history(history, NGP_STEPS)
+    step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
+    refresh_steps = set(range(0, NGP_STEPS, config.occupancy_update_every))
+    plain_steps = [ms for i, ms in enumerate(step_ms) if i > 0 and i not in refresh_steps]
+    steady = statistics.median(plain_steps)
+    share_trained = _occupied_share(model)
+
+    # The two kinds of refresh on their own, through the loop's update function.
+    update = step_lib.make_occupancy_update_fn(config, model)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    refresh_ms = {}
+    for kind, warmup in (("warmup", True), ("sampled", False)):
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    if device_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    by_kind = {}
-    for e in kernels:
-        kind = _kind(e.key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    matmul_tflop = 3 * mlp_forward_flops(model, config.batch_size) / 1e12
-    emit({"phase": "profile", "steps": steps, "wall_ms_per_step": wall_ms,
-          "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
-          "matmul_tflop_per_s_while_running": matmul_tflop / (by_kind.get("matmul", 0.0) / 1e3)
-          if by_kind.get("matmul") else None,
-          "device_ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-          "device_share_by_kind": {k: v / device_ms for k, v in by_kind.items()},
-          "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-          "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total / 1e3 / steps,
-                           "calls_per_step": e.count / steps} for e in top]})
+        t0 = time.perf_counter()
+        grid = update(model.occupancy, gen, warmup)
+        torch.cuda.synchronize()
+        refresh_ms[kind] = 1e3 * (time.perf_counter() - t0)
+        if not torch.isfinite(grid).all():
+            raise AssertionError(f"non-finite grid after a {kind} refresh")
+    model.occupancy.copy_(grid)  # keep the sampled refresh, as the loop would
+    if _launches()["K2a"] != NGP_LEVELS * NGP_STEPS:
+        raise AssertionError("a refresh launched K2a: it should run no backward")
+    points = ngp_points(model, config.batch_size)
+    step_tflop = 3 * ngp_forward_flops(model, config.batch_size) / 1e12
+    emit({"phase": "ngp_train", "config": NGP_CONFIG, "steps": NGP_STEPS,
+          "batch": config.batch_size, "field_points_per_step": points,
+          "scene": f"synthetic {N_IMAGES}x{HEIGHT}x{WIDTH}", "seconds": seconds,
+          "step_ms": step_ms, "refresh_steps": sorted(refresh_steps),
+          "median_step_ms_without_refresh": steady,
+          "rays_per_sec": 1e3 * config.batch_size / steady,
+          "refresh_ms": refresh_ms,
+          "occupied_share_after_training": share_trained,
+          "occupied_share_after_sampled_refresh": _occupied_share(model),
+          "rm_s": history[-1]["rm_s"], "vr_s": history[-1]["vr_s"],
+          "mlp_tflop_per_step": step_tflop,
+          "max_memory_allocated_bytes": peak,
+          "launches": launches, "k2a_shapes": sorted(scan_shapes),
+          "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+          "grad_norm": history[-1]["grad_norm"]})
+    return config, model, launches, step_tflop
 
 
-def summary(errors, timing, train_launches, render_launches):
-    def per_step(key):
-        return sum(timing[f"{r}x{s}"][key] for r, s in TRAIN_SHAPES)
+def phase_ngp_render(config, model):
+    # The same bf16 tables and marching on both; width-64 f32 matmuls and
+    # exp/pow sum and round in another order on the card: 1e-3 on rgb in
+    # [0, 1], relative 1e-3 on distances.
+    out = _render_check(config, model, ngp_forward_flops,
+                        lambda chunks: {"K1a": chunks, "K1b": 0, "K2a": 0}, "ngp_render", 1e-3)
+    emit(out)
+    return out["launches"]
 
-    common = {"route": "cuda", "source": SOURCE, "library_ms": None,
-              "work": "one train step: 2 x [4096, 64] + [4096, 32] float32"}
+
+def summary(errors, timing, scan_errors, scan_timing, launches):
+    def per_step(key, shapes):
+        return sum(timing[f"{r}x{s}"][key] for r, s in shapes)
+
+    def by_phase(kernel):
+        return {phase: counts[kernel] for phase, counts in launches.items()}
+
+    ngp = f"{NGP_K1_SHAPE[0]}x{NGP_K1_SHAPE[1]}"
+    k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
+          "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
+          "launches_note": "mip train + NGP train runs"}
+    path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     kernels = [
-        dict(common, name="K1a volren_weights_fwd",
+        dict(k1, name="K1a volren_weights_fwd",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:54",
-             launches=train_launches["fwd"],
-             launches_by_phase={"train": train_launches["fwd"], "render": render_launches["fwd"]},
+             launches=launches["train"]["K1a"] + launches["ngp_train"]["K1a"],
+             launches_by_phase=by_phase("K1a"),
              max_abs_err=max(f for f, _ in errors.values()),
-             ms=per_step("fwd_ms"), plain_ms=per_step("fwd_plain_ms"),
-             bound_ms=per_step("fwd_bound_ms"), bound_by="bytes"),
-        dict(common, name="K1b volren_weights_bwd",
+             ms=per_step("fwd_ms", TRAIN_SHAPES), plain_ms=per_step("fwd_plain_ms", TRAIN_SHAPES),
+             bound_ms=per_step("fwd_bound_ms", TRAIN_SHAPES), bound_by="bytes",
+             ngp_step={"shape": list(NGP_K1_SHAPE), "ms": timing[ngp]["fwd_ms"],
+                       "plain_ms": timing[ngp]["fwd_plain_ms"],
+                       "bound_ms": timing[ngp]["fwd_bound_ms"]}),
+        dict(k1, name="K1b volren_weights_bwd",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:72",
-             launches=train_launches["bwd"],
-             launches_by_phase={"train": train_launches["bwd"], "render": render_launches["bwd"]},
+             launches=launches["train"]["K1b"] + launches["ngp_train"]["K1b"],
+             launches_by_phase=by_phase("K1b"),
              max_abs_err=max(b for _, b in errors.values()),
-             ms=per_step("bwd_ms"), plain_ms=per_step("bwd_plain_ms"),
-             bound_ms=per_step("bwd_bound_ms"), bound_by="bytes"),
+             ms=per_step("bwd_ms", TRAIN_SHAPES), plain_ms=per_step("bwd_plain_ms", TRAIN_SHAPES),
+             bound_ms=per_step("bwd_bound_ms", TRAIN_SHAPES), bound_by="bytes",
+             ngp_step={"shape": list(NGP_K1_SHAPE), "ms": timing[ngp]["bwd_ms"],
+                       "plain_ms": timing[ngp]["bwd_plain_ms"],
+                       "bound_ms": timing[ngp]["bwd_bound_ms"]}),
+        {"name": "K2a prefix_scan", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:64",
+         "launches": launches["ngp_train"]["K2a"], "launches_by_phase": by_phase("K2a"),
+         "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
+         "max_abs_err_all_shapes": max(e["kernel_vs_plain_abs"] for e in scan_errors.values()),
+         "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"] for e in scan_errors.values()),
+         "work": f"one NGP train step: {NGP_LEVELS} x [{SCAN_PATH[0]}, {SCAN_PATH[1]}] float32",
+         "ms": NGP_LEVELS * scan_timing[path]["ms"],
+         "plain_ms": NGP_LEVELS * scan_timing[path]["plain_ms"],
+         "bound_ms": NGP_LEVELS * scan_timing[path]["bound_ms"], "bound_by": "bytes",
+         "library_ms": NGP_LEVELS * scan_timing[path]["library_ms"],
+         "per_call": scan_timing},
     ]
     emit({"kernels": kernels})
 
@@ -383,12 +646,22 @@ def summary(errors, timing, train_launches, render_launches):
 def main():
     phase_device()
     phase_build()
-    errors, timing = phase_kernels()
+    errors, timing, scan_errors, scan_timing = phase_kernels()
+    launches = {}
     with tempfile.TemporaryDirectory() as exp_dir:
-        config, model, train_launches = phase_train(exp_dir)
-    render_launches = phase_render(config, model)
-    phase_profile(config, model)
-    summary(errors, timing, train_launches, render_launches)
+        config, model, launches["train"] = phase_train(exp_dir)
+    launches["render"] = phase_render(config, model)
+    phase_profile(config, model, 3 * mlp_forward_flops(model, config.batch_size) / 1e12)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as exp_dir:
+        ngp_config, ngp_model, launches["ngp_train"], ngp_tflop = phase_ngp_train(exp_dir)
+    launches["ngp_render"] = phase_ngp_render(ngp_config, ngp_model)
+    phase_profile(ngp_config, ngp_model, ngp_tflop, label="ngp_profile")
+    update = step_lib.make_occupancy_update_fn(ngp_config, ngp_model)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _profile("ngp_refresh_profile", lambda i: update(ngp_model.occupancy, gen, i == 0), 2)
+    summary(errors, timing, scan_errors, scan_timing, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

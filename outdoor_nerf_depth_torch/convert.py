@@ -1,9 +1,10 @@
 """Load a Flax parameter tree into the port's model.
 
-The reference package's `ProposalModel` keeps its weights as nested dicts
-`{"params": {"nerf_mlp": {"trunk0": {"kernel", "bias"}, ...}, "prop_mlp":
-...}}`. Here each Flax `Dense` is an `nn.Linear` of the same name; a Dense
-kernel is [in, out] and a Linear weight is [out, in].
+The reference package's models keep their weights as nested dicts
+`{"params": {"nerf_mlp": {"trunk0": {"kernel", "bias"}, ...}, ...}}`. Here
+each Flax `Dense` is an `nn.Linear` of the same name; a Dense kernel is
+[in, out] and a Linear weight is [out, in]. The hash-grid table
+(`field/encoder/table`, [L, T, F]) is copied as it is.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ def params_from_flax(tree: Mapping, model: torch.nn.Module) -> torch.nn.Module:
         val = np.array(val, dtype=np.float32)  # a writable copy
         if leaf == "kernel":
             name, val = ".".join(module) + ".weight", val.T
-        elif leaf == "bias":
-            name = ".".join(module) + ".bias"
+        elif leaf in ("bias", "table"):
+            name = ".".join(module + [leaf])
         else:
             raise ValueError(f"unexpected Flax leaf {'/'.join(path)}")
         if name not in wanted:

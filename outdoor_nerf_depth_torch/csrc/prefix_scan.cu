@@ -1,0 +1,179 @@
+// Inclusive prefix sum along axis 0 of a row-major [rows, lanes] float32
+// array (K2a), for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `ops/pallas_scan.py:_scan_kernel` of the
+// reference package (public op `cumsum`), which the Instant-NGP hash-table
+// gradient runs once per level on the [samples, 8F] value stream sorted by
+// table row. out[r, l] = sum_{i <= r} x[i, l], accumulated in f32; lanes
+// divides 128, any rows >= 1.
+//
+// The TPU kernel folds 128/lanes rows into one 128-lane row and threads the
+// carry through its sequential grid. Blocks on the card run in parallel and
+// in no order, so this is a reduce-then-scan in three launches:
+//
+//   1. reduce: one block per tile of kTileElems elements (8192 / lanes rows)
+//      writes the tile's per-lane totals;
+//   2. carry:  one block scans the tile totals per lane, in place, into each
+//      tile's exclusive carry;
+//   3. apply:  one block per tile scans the tile again and adds its carry.
+//
+// Inside a tile, thread t owns lane t % lanes and kPerThread consecutive rows
+// of it: a warp's loads at one row step are 32 / lanes runs of `lanes`
+// contiguous floats, so every 32-byte sector it fetches is used whole. Each
+// thread sums its rows in registers; a shared-memory scan over the threads
+// of one lane joins them.
+//
+// Bound: memory. The function reads 4 B and writes 4 B per element (at the
+// hash-grid backward's [262144, 16], 33.6 MB, 10.0 us at 3.35 TB/s). This
+// design reads the input twice (passes 1 and 3), so it moves 12 B per
+// element; a single-pass chained scan with decoupled look-back would move 8.
+//
+// Interface: plain C, loaded with ctypes. The kernels launch on the caller's
+// stream and allocate nothing: the caller passes the [n_tiles, lanes] f32
+// scratch for the tile totals. The entry point returns a cudaError_t.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;                      // threads of a tile block
+constexpr int kPerThread = 32;                     // rows per thread per tile
+constexpr int kTileElems = kThreads * kPerThread;  // 8192 elements per tile
+constexpr int kCarryThreads = 1024;                // threads of the carry block
+constexpr int kMaxLanes = 128;
+
+// Inclusive scan of `v` over the threads t, t - LANES, t - 2 LANES, ... (the
+// threads of one lane), in shared memory `sm` of `n` floats. Returns the sum
+// over the threads of this lane before this one (exclusive).
+template <int LANES>
+__device__ __forceinline__ float exclusive_over_groups(float v, float* sm, int n) {
+  const int t = threadIdx.x;
+  sm[t] = v;
+  __syncthreads();
+  for (int off = LANES; off < n; off <<= 1) {
+    const float y = t >= off ? sm[t - off] : 0.f;
+    __syncthreads();
+    sm[t] += y;
+    __syncthreads();
+  }
+  const float excl = t >= LANES ? sm[t - LANES] : 0.f;
+  __syncthreads();
+  return excl;
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(kThreads)
+prefix_scan_reduce_kernel(const float* __restrict__ x, float* __restrict__ tile_sums,
+                          long long rows) {
+  constexpr int kTileRows = kTileElems / LANES;
+  const int t = threadIdx.x;
+  const int lane = t % LANES;
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * kTileRows + (t / LANES) * kPerThread;
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const long long r = row0 + j;
+    if (r < rows) s += x[r * LANES + lane];
+  }
+  __shared__ float sm[kThreads];
+  sm[t] = s;
+  __syncthreads();
+  // Tree over the threads of each lane: stride and t + stride share a lane.
+  for (int stride = kThreads / 2; stride >= LANES; stride >>= 1) {
+    if (t < stride) sm[t] += sm[t + stride];
+    __syncthreads();
+  }
+  if (t < LANES) tile_sums[static_cast<long long>(blockIdx.x) * LANES + t] = sm[t];
+}
+
+// One block: tile_sums[k, l] <- sum_{i < k} tile_sums[i, l], in place.
+template <int LANES>
+__global__ void __launch_bounds__(kCarryThreads)
+prefix_scan_carry_kernel(float* __restrict__ tile_sums, long long n_tiles) {
+  constexpr int kGroups = kCarryThreads / LANES;
+  const int t = threadIdx.x;
+  const int lane = t % LANES;
+  const long long per = (n_tiles + kGroups - 1) / kGroups;
+  const long long first = (t / LANES) * per;
+  long long last = first + per;
+  if (last > n_tiles) last = n_tiles;
+  float s = 0.f;
+  for (long long k = first; k < last; ++k) s += tile_sums[k * LANES + lane];
+  __shared__ float sm[kCarryThreads];
+  float run = exclusive_over_groups<LANES>(s, sm, kCarryThreads);
+  for (long long k = first; k < last; ++k) {
+    const float v = tile_sums[k * LANES + lane];
+    tile_sums[k * LANES + lane] = run;
+    run += v;
+  }
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(kThreads)
+prefix_scan_apply_kernel(const float* __restrict__ x, const float* __restrict__ tile_carry,
+                         float* __restrict__ out, long long rows) {
+  constexpr int kTileRows = kTileElems / LANES;
+  const int t = threadIdx.x;
+  const int lane = t % LANES;
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * kTileRows + (t / LANES) * kPerThread;
+  float v[kPerThread];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const long long r = row0 + j;
+    s += r < rows ? x[r * LANES + lane] : 0.f;
+    v[j] = s;  // inclusive over this thread's rows
+  }
+  __shared__ float sm[kThreads];
+  const float excl = exclusive_over_groups<LANES>(s, sm, kThreads);
+  const float base = tile_carry[static_cast<long long>(blockIdx.x) * LANES + lane] + excl;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const long long r = row0 + j;
+    if (r < rows) out[r * LANES + lane] = base + v[j];
+  }
+}
+
+template <int LANES>
+cudaError_t launch(const float* x, float* out, float* tile_sums, long long rows,
+                   long long n_tiles, cudaStream_t stream) {
+  prefix_scan_reduce_kernel<LANES>
+      <<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(x, tile_sums, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  prefix_scan_carry_kernel<LANES><<<1, kCarryThreads, 0, stream>>>(tile_sums, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  prefix_scan_apply_kernel<LANES>
+      <<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(x, tile_sums, out, rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out = inclusive cumsum of x along rows. `tile_sums` is scratch of n_tiles
+// * lanes floats, n_tiles = ceil(rows / (kTileElems / lanes)); any other
+// n_tiles is refused.
+extern "C" int prefix_scan_f32(const float* x, float* out, float* tile_sums, long long rows,
+                               int lanes, long long n_tiles, cudaStream_t stream) {
+  if (lanes <= 0 || lanes > kMaxLanes || kMaxLanes % lanes != 0 || rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  const long long tile_rows = kTileElems / lanes;
+  if (n_tiles != (rows + tile_rows - 1) / tile_rows || n_tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (lanes) {
+    case 1: err = launch<1>(x, out, tile_sums, rows, n_tiles, stream); break;
+    case 2: err = launch<2>(x, out, tile_sums, rows, n_tiles, stream); break;
+    case 4: err = launch<4>(x, out, tile_sums, rows, n_tiles, stream); break;
+    case 8: err = launch<8>(x, out, tile_sums, rows, n_tiles, stream); break;
+    case 16: err = launch<16>(x, out, tile_sums, rows, n_tiles, stream); break;
+    case 32: err = launch<32>(x, out, tile_sums, rows, n_tiles, stream); break;
+    case 64: err = launch<64>(x, out, tile_sums, rows, n_tiles, stream); break;
+    default: err = launch<128>(x, out, tile_sums, rows, n_tiles, stream); break;
+  }
+  return static_cast<int>(err);
+}

@@ -1,0 +1,242 @@
+"""Instant-NGP: hash-grid field and occupancy-grid marching renderer.
+
+Port of `HashGridField` and `HashGridModel` from the reference package's
+`models/ngp.py`, for the train path: AABB clip, fixed-width candidate
+marching, occupancy lookup, compaction of the occupied candidates, the
+optional batch-wide `sample_budget` compaction, the field (hash encoding,
+truncated-exp density, degree-4 SH view encoding, sigmoid rgb), compositing
+weights (CUDA kernel K1 on the GPU) and the render.
+
+The occupancy grid is a buffer of the model (`occupancy`), so `.to()` and
+copies carry it; `forward` takes the grid as an explicit argument, as in the
+reference (`occupancy=None` marches densely). The train step and the
+renderer pass the buffer. Layer names match the Flax modules:
+`field.encoder.table`, `field.sigma_hidden`, `field.sigma_out`,
+`field.rgb_hidden{i}`, `field.rgb_out`.
+
+Not ported in this slice, each raising NotImplementedError where asked for:
+the iterative eval renderer (`ngp_eval_renderer="iterative"`, checked by
+`train/step.py:check_supported`), per-image extrinsics refinement
+(`optimize_ext`) and the HDR tonemapper (`rgb_activation="none"`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from outdoor_nerf_depth_torch.models.mlps import _dense
+from outdoor_nerf_depth_torch.ops import hashgrid, volren
+from outdoor_nerf_depth_torch.ops import occupancy as occ
+
+
+class HashGridField(nn.Module):
+    """Hash encoding -> density and geometry features; SH + features -> rgb."""
+
+    def __init__(
+        self,
+        scale: float = 0.5,
+        n_levels: int = 16,
+        n_features: int = 2,
+        log2_table_size: int = 19,
+        base_resolution: int = 16,
+        max_resolution: int = 0,  # 0: 2048 * (2 * scale)
+        geo_features: int = 15,
+        hidden_width: int = 64,
+        rgb_hidden_layers: int = 2,
+        rgb_activation: str = "sigmoid",
+        tonemap_width: int = 64,
+        hash_layout: str = "osplit",
+        grad_mode: str = "auto",
+        compute_dtype: str = "float32",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        del tonemap_width
+        if rgb_activation != "sigmoid":
+            raise NotImplementedError(
+                f"rgb_activation={rgb_activation!r} (the HDR tonemapper) is not ported yet"
+            )
+        max_res = max_resolution or max(int(2048 * 2 * scale), base_resolution + 1)
+        self.encoder = hashgrid.HashGridEncoding(
+            n_levels=n_levels, n_features=n_features, log2_table_size=log2_table_size,
+            base_resolution=base_resolution, max_resolution=max_res, layout=hash_layout,
+            grad_mode=grad_mode, compute_dtype=compute_dtype, generator=generator,
+        )
+        self.e_max = float(occ.cascade_extents(scale)[-1])
+        self.sigma_hidden = _dense(self.encoder.out_dim, hidden_width, generator)
+        self.sigma_out = _dense(hidden_width, 1 + geo_features, generator)
+        y_dim = 16 + geo_features  # SH degree 4 + geometry features
+        self.rgb_names = []
+        for i in range(rgb_hidden_layers):
+            self.add_module(f"rgb_hidden{i}", _dense(y_dim, hidden_width, generator))
+            self.rgb_names.append(f"rgb_hidden{i}")
+            y_dim = hidden_width
+        self.rgb_out = _dense(y_dim, 3, generator)
+
+    def density(self, x, prepared=None):
+        """sigma [...], geometry features [..., geo_features] of world points."""
+        # The world cube [-e_max, e_max]^3 of the outermost cascade -> unit cube.
+        enc = self.encoder(x / (2.0 * self.e_max) + 0.5, prepared=prepared)
+        h = self.sigma_out(F.relu(self.sigma_hidden(enc)))
+        return hashgrid.truncated_exp(h[..., 0]), h[..., 1:]
+
+    def forward(self, x, viewdirs):
+        """x [..., 3] world points, viewdirs [..., 3] unit -> (sigma, rgb)."""
+        sigma, feats = self.density(x)
+        sh = hashgrid.spherical_harmonics(viewdirs)
+        y = torch.cat([sh.expand(feats.shape[:-1] + sh.shape[-1:]), feats], dim=-1)
+        for name in self.rgb_names:
+            y = F.relu(getattr(self, name)(y))
+        return sigma, torch.sigmoid(self.rgb_out(y))
+
+
+class HashGridModel(nn.Module):
+    """AABB clip -> masked marching -> field -> composite."""
+
+    def __init__(
+        self,
+        scale: float = 0.5,
+        grid_resolution: int = 128,
+        max_samples: int = 128,
+        n_candidates: int = 512,
+        sample_budget: int = 0,
+        exponential_steps: Optional[bool] = None,
+        near_distance: float = 0.01,
+        density_threshold: float = 0.01,
+        bg_intensity_range: Tuple[float, float] = (0.0, 0.0),
+        eval_samples_per_round: int = 32,
+        eval_candidates_per_round: int = 256,
+        eval_early_stop_eps: float = 1e-4,
+        eval_max_total_samples: int = 1024,
+        output_radiance: bool = False,
+        optimize_ext: bool = False,
+        num_images: int = 1000,
+        hash_layout: str = "osplit",
+        field_params=None,
+        compute_dtype: str = "float32",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        # Options of the iterative eval renderer and the HDR field, which
+        # are not ported; with a sigmoid field `output_radiance` changes nothing.
+        del eval_samples_per_round, eval_candidates_per_round, eval_early_stop_eps
+        del eval_max_total_samples, output_radiance, num_images
+        if optimize_ext:
+            raise NotImplementedError("optimize_ext (extrinsics refinement) is not ported yet")
+        self.scale = scale
+        self.grid_resolution = grid_resolution
+        self.max_samples = max_samples
+        self.n_candidates = n_candidates
+        self.sample_budget = sample_budget
+        self.exponential = scale > 0.5 if exponential_steps is None else exponential_steps
+        self.near_distance = near_distance
+        self.density_threshold = density_threshold
+        self.bg_intensity_range = tuple(bg_intensity_range)
+        field_kwargs = dict(field_params or {})
+        field_kwargs.setdefault("hash_layout", hash_layout)
+        self.field = HashGridField(scale=scale, compute_dtype=compute_dtype,
+                                   generator=generator, **field_kwargs)
+        self.e_max = self.field.e_max
+        self.register_buffer("occupancy", occ.init_grid(scale, grid_resolution))
+
+    def density(self, x, prepared=None):
+        """Raw density, for occupancy-grid refreshes."""
+        return self.field.density(x, prepared=prepared)[0]
+
+    def prepare_tables(self):
+        """The packed hash tables, built once for a sweep of frozen weights."""
+        return self.field.encoder.prepare()
+
+    def forward(
+        self,
+        rays,
+        train_frac: float = 1.0,
+        compute_extras: bool = False,
+        generator: Optional[torch.Generator] = None,
+        occupancy: Optional[torch.Tensor] = None,
+    ):
+        """Render `rays`; returns ([rendering], [history]) like every model.
+
+        `generator` jitters the candidates (None: deterministic); `occupancy`
+        is the [cascades, R^3] density grid to march through (None: every
+        candidate is occupied).
+        """
+        del train_frac, compute_extras
+        # March along unit directions, so t is metric distance.
+        t_near, t_far, hit = occ.intersect_aabb(
+            rays.origins, rays.viewdirs, self.e_max, near_min=self.near_distance
+        )
+        t_near = torch.maximum(t_near, rays.near[..., 0])
+        t_far = torch.maximum(torch.minimum(t_far, rays.far[..., 0]), t_near + 1e-4)
+        edges = occ.march_candidates(generator, t_near, t_far, self.n_candidates, self.exponential)
+        if occupancy is not None:
+            mids_all = 0.5 * (edges[..., :-1] + edges[..., 1:])
+            pts_all = rays.origins[..., None, :] + mids_all[..., None] * rays.viewdirs[..., None, :]
+            # min(threshold, mean density) keeps marching alive while the
+            # whole field is still dim.
+            thresh = torch.clamp(occ.mean_density(occupancy), max=self.density_threshold)
+            occupied = occ.lookup(occupancy, pts_all, self.scale, thresh)
+        else:
+            occupied = torch.ones(edges.shape[:-1] + (self.n_candidates,), dtype=torch.bool,
+                                  device=edges.device)
+        occupied = occupied & hit[..., None]
+
+        t_mid, dt, valid = occ.compact_occupied(edges, occupied, self.max_samples)
+        pts = rays.origins[..., None, :] + t_mid[..., None] * rays.viewdirs[..., None, :]
+        # Dead slots all read one constant point; their output is masked.
+        pts = torch.where(valid[..., None], pts, 0.0)
+        if self.sample_budget and self.sample_budget < self.max_samples:
+            # Run the field only on the valid slots (up to the budget), then
+            # expand sigma and rgb back onto the dense [rays, K] grid.
+            batch_shape, k = valid.shape[:-1], valid.shape[-1]
+            n_rays = valid[..., 0].numel()
+            budget = n_rays * int(self.sample_budget)
+            sel, inv = occ.batch_compaction_plan(valid, budget)
+            pts_c = pts.reshape(-1, 3)[sel]
+            vdirs_c = rays.viewdirs.reshape(-1, 3)[sel // k]
+            sigma_c, rgb_c = self.field(pts_c, vdirs_c)
+            dense = occ.expand_compacted(torch.cat([sigma_c[:, None], rgb_c], dim=-1), inv, sel)
+            sigma = dense[:, 0].reshape(batch_shape + (k,))
+            rgb = dense[:, 1:].reshape(batch_shape + (k, 3))
+        else:
+            sigma, rgb = self.field(pts, rays.viewdirs[..., None, :])
+        sigma = torch.where(valid, sigma, 0.0)
+
+        weights = volren.weights_from_optical_depth(sigma * dt)
+        acc = torch.sum(weights, dim=-1)
+        lo, hi = self.bg_intensity_range
+        if lo == hi:
+            bg = lo
+        elif generator is None:
+            bg = 0.5 * (lo + hi)
+        else:
+            bg = lo + (hi - lo) * torch.rand(acc.shape + (3,), generator=generator,
+                                             device=acc.device)
+        rgb_map = torch.sum(weights[..., None] * rgb, dim=-2) + (1.0 - acc[..., None]) * bg
+        depth = torch.sum(weights * t_mid, dim=-1)
+        rendering = {
+            "rgb": rgb_map,
+            "depth": depth,
+            "distance_mean": depth,
+            "acc": acc,
+            "samples_per_ray": torch.sum(valid, dim=-1),
+            # Marching efficiency: occupied candidates (rm) and rendered
+            # samples (vr) per ray.
+            "rm_per_ray": torch.sum(occupied, dim=-1),
+            "vr_per_ray": torch.sum(valid, dim=-1),
+        }
+        history = dict(weights=weights, steps=t_mid, lengths=dt, valid=valid)
+        return [rendering], [history]
+
+
+def make_density_fn(model: HashGridModel, prepared=None):
+    """Density closure for `ops.occupancy.update_grid` refreshes."""
+
+    def density_fn(pts):
+        return model.density(pts, prepared=prepared)
+
+    return density_fn

@@ -1,0 +1,90 @@
+"""Inclusive prefix sum along axis 0 of [N, lanes]: CUDA kernel K2a and plain twin.
+
+Replaces the reference package's Pallas kernel `_scan_kernel` in
+`ops/pallas_scan.py` (public op `cumsum`), the scan inside the Instant-NGP
+hash-table gradient (`ops/hashgrid.py:_oct_split_row_sums`). The kernel
+lives in `csrc/prefix_scan.cu` (reduce-then-scan in three launches; see the
+note there). `lanes` must divide 128, as in the reference; any N works.
+
+`cumsum` uses the plain version, `torch.cumsum(x, dim=0)`, only for a tensor
+on the CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES`
+counts kernel launches, so a run can show that it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from outdoor_nerf_depth_torch.ops import cuda_build
+
+LANE = 128
+TILE_ELEMS = 8192  # elements per tile of the kernel (kTileElems in the source,
+                   # which refuses a scratch sized for another tile)
+SOURCE = "prefix_scan"
+
+LAUNCHES = 0
+
+
+def reset_launch_counts():
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _check_lanes(x: torch.Tensor):
+    if x.dim() != 2:
+        raise ValueError(f"prefix scan takes a 2-D [N, lanes] array, got {tuple(x.shape)}")
+    lanes = x.shape[1]
+    if lanes == 0 or LANE % lanes:
+        raise ValueError(f"lanes must divide {LANE}, got {lanes}")
+
+
+def cumsum_plain(x: torch.Tensor) -> torch.Tensor:
+    """torch.cumsum along axis 0, accumulated in float32, in x's dtype."""
+    return torch.cumsum(x.to(torch.float32), dim=0).to(x.dtype)
+
+
+def _lib():
+    lib = cuda_build.load(SOURCE)
+    if not getattr(lib, "_argtypes_set", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.prefix_scan_f32.argtypes = [ptr, ptr, ptr, i64, i32, i64, ptr]
+        lib.prefix_scan_f32.restype = i32
+        lib._argtypes_set = True
+    return lib
+
+
+def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
+    """K2a on a contiguous [N, lanes] float32 CUDA tensor."""
+    global LAUNCHES
+    _check_lanes(x)
+    if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()):
+        raise ValueError(
+            f"kernel takes a contiguous float32 CUDA tensor, got {x.dtype} on {x.device}"
+        )
+    rows, lanes = x.shape
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    n_tiles = -(-rows // (TILE_ELEMS // lanes))
+    tile_sums = torch.empty((n_tiles, lanes), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _lib().prefix_scan_f32(
+            x.data_ptr(), out.data_ptr(), tile_sums.data_ptr(), rows, lanes, n_tiles,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(f"prefix_scan launch failed: cudaError {code}")
+    LAUNCHES += 1
+    return out
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along axis 0 of [N, lanes] (lanes | 128)."""
+    _check_lanes(x)
+    if x.device.type == "cpu":
+        return cumsum_plain(x)
+    if x.is_cuda:
+        return cumsum_cuda(x.contiguous())
+    raise ValueError(f"no prefix-scan implementation on {x.device}")

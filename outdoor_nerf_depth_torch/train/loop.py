@@ -4,6 +4,9 @@ Port of `train` and `evaluate` from the reference package's `train/loop.py`
 for `dataset=synthetic`: prefetched batches -> train step -> JSON log lines
 with the reference's keys every `print_every` steps, an optional held-out
 view render every `train_render_every` steps, and per-image eval metrics.
+An NGP model's occupancy grid (a buffer of the model) is refreshed before
+step 0 and then every `occupancy_update_every` steps, sweeping every cell
+below `occupancy_warmup_steps`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
 CUDA they raise instead of falling back. Checkpoints are not ported yet: a
@@ -82,8 +85,10 @@ def train(config: Config, device=None, log_fn=print, dataset=None):
         config, model, optimizer, lr_fn,
         cameras=dataset.cameras_on(device), camtype=dataset.camtype,
     )
-    # Per-level jitter and background draws, seeded from the config.
+    # Jitter, background and occupancy-refresh draws, seeded from the config.
     generator = torch.Generator(device=device).manual_seed(config.seed)
+    occ_update = step_lib.make_occupancy_update_fn(config, model)
+    occ_every, next_occ = config.occupancy_update_every, 0
     batches = datasets_lib.PrefetchIterator(dataset.sample_batch)
 
     test_dataset = None
@@ -93,6 +98,12 @@ def train(config: Config, device=None, log_fn=print, dataset=None):
     history = []
     t_last, rays_since = time.perf_counter(), 0
     for step in range(max_steps):
+        if occ_update is not None and step >= next_occ:
+            # The grid starts empty: without this refresh before step 0 the
+            # first step would march no sample at all.
+            warmup = step < config.occupancy_warmup_steps
+            model.occupancy.copy_(occ_update(model.occupancy, generator, warmup))
+            next_occ = (step // occ_every + 1) * occ_every
         batch = rays_lib.to_device(next(batches), device, non_blocking=True)
         stats = train_step(batch, step, step / max_steps, generator)
         done = step + 1
@@ -108,6 +119,7 @@ def train(config: Config, device=None, log_fn=print, dataset=None):
                 "rays_per_sec_per_chip": rays_since / (now - t_last),
                 "grad_norm": float(stats["grad_norm"]),
                 **{f"loss_{k}": float(v) for k, v in stats["loss_terms"].items()},
+                **{k: float(stats[k]) for k in ("rm_s", "vr_s") if k in stats},
             }
             history.append(entry)
             log_fn(json.dumps({k: round(v, 5) if isinstance(v, float) else v

@@ -1,10 +1,11 @@
 """Photometric, depth-supervision and proposal/distortion losses.
 
 Port of the mip-NeRF path of the reference package's `train/losses.py`:
-rgb (mse, charb), expected-depth (mse, l1) and DS-NeRF KL depth losses, and
-the interlevel and distortion regularizers on interval histories. The URF
-and Gaussian-NLL depth losses and the Ref-NeRF/NGP regularizers are not
-ported yet.
+rgb (mse, charb), expected-depth (mse, l1) and DS-NeRF KL depth losses, the
+interlevel regularizer, the distortion regularizer on interval histories
+(mip-NeRF 360) and on point samples (Instant-NGP), and NGP's opacity
+entropy. The URF and Gaussian-NLL depth losses and the Ref-NeRF
+regularizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,14 +57,18 @@ def ds_nerf_kl_loss(weights, depth_sup, steps, lengths, sigma,
 
 def depth_loss_from_history(level_history: dict, depth_sup, depth_pred, dirs, sigma,
                             kind: str, reduce: str = "mean_all", fg_far_mask: bool = False):
-    """Dispatch a depth loss given one level's ray history ('tdist' edges)."""
+    """Dispatch a depth loss given one level's ray history ('tdist' edges or
+    'steps'/'lengths' points)."""
     if kind in ("mse", "l1"):
         return expected_depth_loss(depth_pred, depth_sup, kind=kind, reduce=reduce)
     if kind != "kl":
         raise NotImplementedError(f"depth loss {kind!r} is not ported yet")
-    tdist = level_history["tdist"]
-    steps = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
-    lengths = torch.diff(tdist, dim=-1) * torch.linalg.norm(dirs[..., None, :], dim=-1)
+    if "tdist" in level_history:
+        tdist = level_history["tdist"]
+        steps = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
+        lengths = torch.diff(tdist, dim=-1) * torch.linalg.norm(dirs[..., None, :], dim=-1)
+    else:  # point samples
+        steps, lengths = level_history["steps"], level_history["lengths"]
     fg_far = level_history.get("fg_far") if fg_far_mask else None
     return ds_nerf_kl_loss(level_history["weights"], depth_sup, steps, lengths, sigma, fg_far)
 
@@ -84,6 +89,23 @@ def interlevel_loss(ray_history) -> torch.Tensor:
 
 
 def distortion_loss(ray_history) -> torch.Tensor:
-    """mip-NeRF 360 distortion on the final level, in normalized s-space."""
+    """Distortion on the final level.
+
+    Interval histories ('sdist') use the mip-NeRF 360 form in normalized
+    s-space; point samples ('steps', 'lengths') the same functional in
+    metric t (the DVGO-v2 form), which builds [..., K, K] pairwise terms.
+    """
     last = ray_history[-1]
-    return torch.mean(stepfuns.distortion_loss(last["sdist"], last["weights"]))
+    if "sdist" in last:
+        return torch.mean(stepfuns.distortion_loss(last["sdist"], last["weights"]))
+    w, t, dt = last["weights"], last["steps"], last["lengths"]
+    pair = torch.abs(t[..., :, None] - t[..., None, :])
+    inter = torch.sum(w * torch.sum(w[..., None, :] * pair, dim=-1), dim=-1)
+    intra = torch.sum(w**2 * dt, dim=-1) / 3.0
+    return torch.mean(inter + intra)
+
+
+def opacity_entropy_loss(acc, eps: float = 1e-5) -> torch.Tensor:
+    """NGP's opacity regularizer: -o log o pushes each ray to 0 or 1."""
+    o = torch.clamp(acc, eps, 1.0 - eps)
+    return torch.mean(-o * torch.log(o))

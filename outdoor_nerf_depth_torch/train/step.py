@@ -1,10 +1,12 @@
-"""The mip-NeRF 360 train step and the chunked image renderer.
+"""The train step, the occupancy-grid refresh and the chunked image renderer.
 
-Port of the mip path of the reference package's `train/step.py`: Adam with
-the log-linear delayed schedule, per-top-level-module value then norm
-gradient clipping, the loss assembly, `nan_to_num` on the gradients, the
-`grad_norm` stat, and chunked `render_image`. One device, eager PyTorch,
-float32 matmuls (TF32 off, see `train/loop.py:set_full_float32`).
+Port of the reference package's `train/step.py` for the mip-NeRF 360 and
+Instant-NGP models: Adam with the log-linear delayed schedule,
+per-top-level-module value then norm gradient clipping, the loss assembly
+(with NGP's point-sampled distortion, opacity entropy and rm_s/vr_s
+marching stats), `nan_to_num` on the gradients, the `grad_norm` stat, the
+NGP occupancy refresh, and chunked `render_image`. One device, eager
+PyTorch, float32 matmuls (TF32 off, see `train/loop.py:set_full_float32`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import torch
 from outdoor_nerf_depth_torch import models as models_lib
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib
 from outdoor_nerf_depth_torch.data import rays as rays_lib
+from outdoor_nerf_depth_torch.models.ngp import HashGridModel, make_density_fn
 from outdoor_nerf_depth_torch.ops import mathx
+from outdoor_nerf_depth_torch.ops import occupancy as occ_lib
 from outdoor_nerf_depth_torch.train import losses as losses_lib
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train.config import Config
@@ -26,8 +30,10 @@ from outdoor_nerf_depth_torch.train.config import Config
 def check_supported(config: Config):
     """Raise NotImplementedError for options this slice of the port lacks."""
     unported = []
-    if config.model != "mipnerf360":
+    if config.model not in ("mipnerf360", "ngp"):
         unported.append(f"model={config.model}")
+    if config.model == "ngp" and config.ngp_eval_renderer != "train":
+        unported.append(f"ngp_eval_renderer={config.ngp_eval_renderer}")
     if config.compute_dtype != "float32":
         unported.append(f"compute_dtype={config.compute_dtype}")
     for key, default in (("remat", "none"), ("grad_accum_steps", 1),
@@ -35,7 +41,7 @@ def check_supported(config: Config):
                          ("slim_checkpoint", ""), ("weight_decay_mults", {})):
         if getattr(config, key) != default:
             unported.append(f"{key}={getattr(config, key)}")
-    for key in ("opacity_loss_mult", "autoexpo_loss_mult", "orientation_loss_mult",
+    for key in ("autoexpo_loss_mult", "orientation_loss_mult",
                 "orientation_coarse_loss_mult", "predicted_normal_loss_mult",
                 "predicted_normal_coarse_loss_mult"):
         if getattr(config, key) > 0:
@@ -49,8 +55,9 @@ def build_model(config: Config, generator: Optional[torch.Generator] = None):
     check_supported(config)
     params = dict(config.model_params or {})
     params.setdefault("compute_dtype", config.compute_dtype)
-    params.setdefault("nerf_mlp_params", config.nerf_mlp_params or None)
-    params.setdefault("prop_mlp_params", config.prop_mlp_params or None)
+    if config.model == "mipnerf360":
+        params.setdefault("nerf_mlp_params", config.nerf_mlp_params or None)
+        params.setdefault("prop_mlp_params", config.prop_mlp_params or None)
     return models_lib.build(config.model, generator=generator, **params)
 
 
@@ -130,17 +137,27 @@ def _total_loss(config: Config, batch, renderings, ray_history, rays):
         loss_terms["depth"] = config.lambda_depth * (
             config.data_coarse_loss_mult * torch.sum(dl[:-1]) + config.data_loss_mult * dl[-1]
         )
-    if config.interlevel_loss_mult > 0 and len(ray_history) > 1:
+    has_sdist = "sdist" in ray_history[0]
+    if config.interlevel_loss_mult > 0 and len(ray_history) > 1 and has_sdist:
         loss_terms["interlevel"] = config.interlevel_loss_mult * losses_lib.interlevel_loss(
             ray_history
         )
-    if config.distortion_loss_mult > 0:
+    if config.distortion_loss_mult > 0 and (has_sdist or "steps" in ray_history[-1]):
         loss_terms["distortion"] = config.distortion_loss_mult * losses_lib.distortion_loss(
             ray_history
+        )
+    if config.opacity_loss_mult > 0 and "acc" in renderings[-1]:
+        loss_terms["opacity"] = config.opacity_loss_mult * losses_lib.opacity_entropy_loss(
+            renderings[-1]["acc"]
         )
     stats["mses"] = torch.stack(mses).detach()
     stats["psnrs"] = metrics_lib.mse_to_psnr(stats["mses"])
     stats["psnr"] = stats["psnrs"][-1]
+    # NGP marching efficiency: mean occupied candidates and mean rendered
+    # samples per ray this step.
+    if "rm_per_ray" in renderings[-1]:
+        stats["rm_s"] = renderings[-1]["rm_per_ray"].to(torch.float32).mean()
+        stats["vr_s"] = renderings[-1]["vr_per_ray"].to(torch.float32).mean()
     return loss_terms, stats
 
 
@@ -150,7 +167,8 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
 
     `batch` lives on the model's device. A batch of `Pixels` is cast to rays
     there with `cameras` (tensors on the same device). `step_index` counts
-    the updates made so far and sets the learning rate.
+    the updates made so far and sets the learning rate. An NGP model marches
+    through its `occupancy` buffer.
     """
     compute_extras = config.lambda_depth > 0 and config.depth_loss_type in (
         "mse", "l1", "urf", "nll"
@@ -163,7 +181,7 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
             rays = cameras_lib.cast_pixels(rays, cameras, camtype)
         renderings, ray_history = model(
             rays, train_frac=train_frac, compute_extras=compute_extras,
-            generator=generator if config.randomized else None,
+            generator=generator if config.randomized else None, **_grid_kwargs(model),
         )
         loss_terms, stats = _total_loss(config, batch, renderings, ray_history, rays)
         total = sum(loss_terms.values())
@@ -187,12 +205,40 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
     return step
 
 
+def _grid_kwargs(model) -> dict:
+    """The occupancy grid an NGP model marches through; nothing for others."""
+    return {"occupancy": model.occupancy} if isinstance(model, HashGridModel) else {}
+
+
+def make_occupancy_update_fn(config: Config, model):
+    """The NGP occupancy-grid refresh; None for models without a grid.
+
+    Returns update(grid, generator, warmup) -> new grid. A warmup refresh
+    sweeps every cell, a later one `occupancy_cells_per_update` sampled
+    cells per cascade. The packed hash tables are built once per refresh,
+    not once per chunk of the sweep.
+    """
+    if not isinstance(model, HashGridModel):
+        return None
+
+    @torch.no_grad()
+    def update(grid, generator, warmup: bool):
+        density_fn = make_density_fn(model, model.prepare_tables())
+        return occ_lib.update_grid(
+            grid, density_fn, model.scale, decay=config.occupancy_decay,
+            n_per_cascade=0 if warmup else config.occupancy_cells_per_update,
+            threshold=model.density_threshold, generator=generator,
+        )
+
+    return update
+
+
 @torch.no_grad()
 def render_image(model, batch, chunk_size: int = 16384, device=None):
     """Render a full image ([H, W] rays) in chunks; returns numpy [H, W, ...].
 
     Deterministic (no jitter, train_frac 1) with every extra; the per-ray
-    outputs of the finest level.
+    outputs of the finest level. An NGP model marches through its grid.
     """
     device = device or next(model.parameters()).device
     rays = batch.rays
@@ -202,7 +248,8 @@ def render_image(model, batch, chunk_size: int = 16384, device=None):
     for start in range(0, h * w, chunk_size):
         chunk = rays_lib.map_fields(lambda r: r[start : start + chunk_size], flat)
         renderings, _ = model(
-            rays_lib.to_device(chunk, device), train_frac=1.0, compute_extras=True
+            rays_lib.to_device(chunk, device), train_frac=1.0, compute_extras=True,
+            **_grid_kwargs(model),
         )
         outs.append({k: v.cpu() for k, v in renderings[-1].items()})
     return {

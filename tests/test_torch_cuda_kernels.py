@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import volren_weights
+from outdoor_nerf_depth_torch.ops import hashgrid, prefix_scan, volren_weights
 
 # Forward: one f32 prefix sum in another order; backward: a suffix sum of
 # products on top of it.
@@ -58,3 +58,36 @@ def test_function_launches_kernels_and_matches_cpu(cuda_device):
     torch.testing.assert_close(volren_weights.weights_from_tau(tau).cpu(), w_cpu.detach(),
                                atol=FWD_ATOL, rtol=0)
     torch.testing.assert_close(tau_gpu.grad.cpu(), tau_cpu.grad, atol=BWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(262144, 16), (1048576, 16), (1, 8), (7, 8), (4097, 8),
+                                   (1, 128), (7, 128), (4097, 128)])
+def test_prefix_scan_matches_plain(cuda_device, shape):
+    x = torch.from_numpy(np.random.RandomState(13).randn(*shape).astype(np.float32)).to(cuda_device)
+    got = prefix_scan.cumsum_cuda(x)
+    want = prefix_scan.cumsum_plain(x)
+    # Two f32 orders of the same sums: the error of either is a few ulps
+    # of the running sum of |x|, so compare relative to it.
+    scale = torch.cumsum(x.abs().double(), dim=0) + 1.0
+    assert float(((got - want).abs() / scale).max()) < 1e-5
+
+
+def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    enc = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,
+                                    base_resolution=4, max_resolution=64, generator=gen)
+    x = torch.rand((4096, 3), generator=gen)
+    g = torch.randn((4096, 8), generator=gen)
+    enc_gpu = enc.to(cuda_device)
+    prefix_scan.reset_launch_counts()
+    (enc_gpu(x.to(cuda_device)) * g.to(cuda_device)).sum().backward()
+    assert prefix_scan.LAUNCHES == 4
+    grad_gpu = enc_gpu.table.grad.cpu()
+    enc_cpu = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,
+                                        base_resolution=4, max_resolution=64)
+    with torch.no_grad():
+        enc_cpu.table.copy_(enc_gpu.table.cpu())
+    (enc_cpu(x) * g).sum().backward()
+    # Row sums are differences of f32 prefix sums over up to 4096 products
+    # of |w g| <= 4: their rounding scales with the prefix, ~1e-3 at most.
+    torch.testing.assert_close(grad_gpu, enc_cpu.table.grad, atol=1e-3, rtol=1e-4)

@@ -1,0 +1,168 @@
+"""The port's hash-grid encoding ("osplit" layout), spherical harmonics and
+truncated exp against the reference package on the CPU, with the same
+numpy inputs: L=4 levels (one dense, three hashed), T=2^10, F=2, 256 points.
+The reference's sorted-segment gradient (`_oct_split_grad_encode`) is the
+reference for the table gradient."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from outdoor_nerf_depth_torch.ops import hashgrid as t_hg
+from outdoor_nerf_depth_tpu.ops import hashgrid as j_hg
+
+torch.set_num_threads(1)
+
+L, LOG2_T, F, N = 4, 10, 2, 256
+T = 2**LOG2_T
+RES = tuple(int(r) for r in j_hg.level_resolutions(L, 4, 64))
+
+
+@pytest.fixture(autouse=True)
+def _highest_precision():
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-0.05, 1.05, (N, 3)).astype(np.float32)  # some outside the clip
+    table = rng.normal(0.0, 0.1, (L, T, F)).astype(np.float32)
+    g = rng.normal(size=(N, L * F)).astype(np.float32)
+    return x, table, g
+
+
+def test_levels_cover_dense_and_hashed():
+    assert RES == tuple(int(r) for r in t_hg.level_resolutions(L, 4, 64))
+    assert t_hg.growth_factor(L, 4, 64) == j_hg.growth_factor(L, 4, 64)
+    dense = [(r + 1) ** 3 <= T for r in RES]
+    assert dense[0] and not dense[-1]
+    assert t_hg._oct_level_rows(RES, T) == j_hg._oct_level_rows(RES, T)
+    for r in RES:
+        assert t_hg._oct_offsets(r, T) == j_hg._oct_offsets(r, T)
+
+
+@pytest.mark.parametrize("res,log2_t", [(32, 10), (5, 10), (32768, 19), (2048, 19)])
+def test_base_index_matches_exactly(res, log2_t):
+    """int64 arithmetic masked by T-1 equals the reference's wrapping uint32
+    hash, up to the largest cell of the KITTI NGP config (res 32768)."""
+    rng = np.random.default_rng(res)
+    cell = rng.integers(0, res, (4096, 3)).astype(np.int32)
+    cell[0] = res - 1
+    want, _ = j_hg._quad_base_index(jnp.asarray(cell), res, 2**log2_t)
+    got = t_hg._quad_base_index(torch.from_numpy(cell).to(torch.int64), res, 2**log2_t)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_indices_and_weights(inputs):
+    x, *_ = inputs
+    j_idx, j_w = j_hg._oct_local_indices_weights(jnp.asarray(x), np.asarray(RES), T)
+    t_idx, t_w = t_hg._oct_local_indices_weights(torch.from_numpy(x), RES, T)
+    for a, b in zip(t_idx, j_idx):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # Products of three f32 factors: a few ulps.
+    np.testing.assert_allclose(t_w.numpy(), np.asarray(j_w), rtol=1e-6, atol=1e-7)
+
+
+def test_bf16_tables_bitwise(inputs):
+    _, table, _ = inputs
+    want = j_hg.build_oct_tables_split(jnp.asarray(table), np.asarray(RES), T)
+    got = t_hg.build_oct_tables_split(torch.from_numpy(table), RES, T)
+    assert len(got) == L
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        # Both round f32 to nearest even: identical bits.
+        np.testing.assert_array_equal(a.view(torch.int16).numpy(),
+                                      np.asarray(b).view(np.int16))
+
+
+def test_encode_oct_split(inputs):
+    x, table, _ = inputs
+    want = j_hg.encode_oct_split(jnp.asarray(x), jnp.asarray(table), np.asarray(RES), T)
+    got = t_hg.encode_oct_split(torch.from_numpy(x), torch.from_numpy(table), RES, T)
+    # The same bf16 rows blended in f32 with ulp-close weights.
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
+    enc = t_hg.HashGridEncoding(n_levels=L, n_features=F, log2_table_size=LOG2_T,
+                                base_resolution=4, max_resolution=64)
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(table))
+        np.testing.assert_array_equal(enc(torch.from_numpy(x), prepared=enc.prepare()).numpy(),
+                                      got.numpy())
+
+
+def test_table_and_point_gradients_match_sorted_reference(inputs):
+    """A linear loss sum(out * g) hands both the same cotangent bit for bit,
+    so the bf16-rounded products w*g agree and only the scan order differs.
+
+    A table row's gradient is the difference of two f32 prefix sums over up
+    to N rows of products |w g| <= 4, so its rounding error scales with the
+    prefix (N * 4 * 2^-24 ~ 6e-5), not with the row: atol 1e-4 covers two
+    orders of the sum. Point gradients blend the same bf16 rows: 1e-5.
+    """
+    x, table, g = inputs
+    fn = j_hg._oct_split_grad_encode(RES, T)
+    j_dx, j_dt = jax.grad(lambda a, b: jnp.sum(fn(a, b) * g), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(table))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tt = torch.from_numpy(table).requires_grad_(True)
+    out = t_hg.OctSplitEncode.apply(xt, tt, RES, T)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(fn(jnp.asarray(x), jnp.asarray(table))),
+                               rtol=1e-5, atol=1e-7)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert float(np.abs(np.asarray(j_dt)).sum()) > 1.0
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(j_dt), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(j_dx), rtol=1e-4, atol=1e-5)
+
+
+def test_row_sums_against_numpy():
+    rng = np.random.default_rng(3)
+    idx = rng.integers(0, 50, 300)
+    vals = rng.normal(size=(300, 16)).astype(np.float32)
+    got = t_hg._oct_split_row_sums(torch.from_numpy(idx), torch.from_numpy(vals), 60)
+    bf = torch.from_numpy(vals).to(torch.bfloat16).to(torch.float32).numpy()
+    want = np.zeros((60, 16))
+    np.add.at(want, idx, bf)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert np.all(got[50:].numpy() == 0)
+
+
+def test_spherical_harmonics(inputs):
+    d = np.random.default_rng(1).normal(size=(64, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    np.testing.assert_allclose(t_hg.spherical_harmonics(torch.from_numpy(d)).numpy(),
+                               np.asarray(j_hg.spherical_harmonics(jnp.asarray(d))),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_truncated_exp_forward_and_gradient():
+    x = np.array([-20.0, -15.0, -1.0, 0.0, 2.5, 15.0, 16.0, 40.0], np.float32)
+    j_y, j_vjp = jax.vjp(j_hg.truncated_exp, jnp.asarray(x))
+    (j_g,) = j_vjp(jnp.ones_like(j_y))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = t_hg.truncated_exp(xt)
+    y.sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(j_y), rtol=1e-6)
+    # The gradient stays g exp(clip(x)) outside the clip, not 0.
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(j_g), rtol=1e-6)
+    assert xt.grad[-1] > 0 and xt.grad[0] > 0
+
+
+def test_encoding_module_options():
+    gen = torch.Generator().manual_seed(0)
+    enc = t_hg.HashGridEncoding(n_levels=L, n_features=F, log2_table_size=LOG2_T,
+                                base_resolution=4, max_resolution=64, generator=gen)
+    assert enc.table.shape == (L, T, F) and enc.resolutions == RES
+    assert enc.table.abs().max() <= 1e-4 and enc.out_dim == L * F
+    for layout in ("oct", "quad", "corner"):
+        with pytest.raises(NotImplementedError):
+            t_hg.HashGridEncoding(layout=layout)
+    with pytest.raises(ValueError):
+        t_hg.HashGridEncoding(layout="nope")
+    with pytest.raises(ValueError):
+        t_hg.HashGridEncoding(pack_rows=64)
+    with pytest.raises(NotImplementedError):
+        t_hg.HashGridEncoding(grad_mode="scatter")

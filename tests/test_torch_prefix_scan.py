@@ -1,0 +1,53 @@
+"""The port's prefix scan (K2a's plain path on the CPU) against the reference
+package's Pallas scan run in interpret mode, on the same numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from outdoor_nerf_depth_torch.ops import prefix_scan
+from outdoor_nerf_depth_tpu.ops import pallas_scan
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("n", [7, 512, 4096, 4097, 12345])
+@pytest.mark.parametrize("lanes", [16, 8, 128])
+def test_matches_pallas_interpret(n, lanes):
+    rng = np.random.default_rng(n + lanes)
+    x = rng.normal(size=(n, lanes)).astype(np.float32)
+    want = np.asarray(pallas_scan.cumsum(jnp.asarray(x), block_rows=64, interpret=True))
+    got = prefix_scan.cumsum(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (n, lanes)
+    # Two f32 orders of the same sums: random walks of up to 12345 steps
+    # drift by ~1e-4 (the reference's own tolerance for its blocked scan).
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
+def test_ones_count_exactly():
+    got = prefix_scan.cumsum(torch.ones((4097, 16)))
+    np.testing.assert_array_equal(got[:, 0].numpy(), np.arange(1, 4098, dtype=np.float32))
+
+
+def test_bfloat16_accumulates_in_float32():
+    x = torch.full((1000, 8), 1.0, dtype=torch.bfloat16)
+    got = prefix_scan.cumsum(x)
+    # bf16 accumulation would stall at 256; f32 accumulation reaches 1000.
+    assert got.dtype == torch.bfloat16 and float(got[-1, 0]) == 1000.0
+
+
+@pytest.mark.parametrize("shape", [(8, 48), (8, 0), (8,), (2, 4, 16)])
+def test_bad_shapes_raise(shape):
+    with pytest.raises(ValueError):
+        prefix_scan.cumsum(torch.ones(shape))
+
+
+def test_cpu_uses_the_plain_version_and_counts_no_launch():
+    prefix_scan.reset_launch_counts()
+    prefix_scan.cumsum(torch.ones((10, 16)))
+    assert prefix_scan.LAUNCHES == 0
+    with pytest.raises(ValueError, match="no prefix-scan implementation"):
+        prefix_scan.cumsum(torch.ones((10, 16), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        prefix_scan.cumsum_cuda(torch.ones((10, 16)))
