@@ -8,7 +8,9 @@ non-zero without the final line:
   device      CUDA must be present; the card's name and power limit
   build       nvcc builds every CUDA source of the port into build/, all at once
   kernels     each kernel against its plain PyTorch version on the card, at the
-              shapes of the paths and at edge cases; times from CUDA events
+              shapes of the paths and at edge cases (K2b at the osplit probe's
+              [16, 524288, 16], P1 and P2 at the gather probe's 8.4M queries,
+              which must match bit for bit); times from CUDA events
   train       the port's own train() on the flagship config
               (configs/kitti_mipnerf360.json, full widths, batch 4096, float32)
               on the synthetic scene of 8 images of 94x310, for a few steps;
@@ -26,6 +28,13 @@ non-zero without the final line:
               against the same model and grid on the CPU for a few rays
   ngp_profile two more NGP train steps under torch.profiler, then one warmup
               and one sampled occupancy refresh
+  probe_osplit_bwd  probes.osplit_bwd.run() at full size (524,288 points, L16,
+              T 2^19): the hash-table backward stage by stage, 16 scans against
+              one K2b launch; one K2b launch per timed batched call, 16 K2a
+              launches per timed fwd+bwd, merged row sums equal to the port's
+  probe_gather      probes.gather_attack.run() at full size (8.4M queries):
+              index_select against table size, sorts against operand count,
+              P1 and P2 beside index_select
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -50,8 +59,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib  # noqa: E402
 from outdoor_nerf_depth_torch.data import rays as rays_lib  # noqa: E402
-from outdoor_nerf_depth_torch.ops import cuda_build, prefix_scan, volren_weights  # noqa: E402
+from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  # noqa: E402
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
+from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
+from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd  # noqa: E402
 from outdoor_nerf_depth_torch.train import step as step_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.config import load_config  # noqa: E402
 from outdoor_nerf_depth_torch.train.loop import set_full_float32, train  # noqa: E402
@@ -64,6 +75,7 @@ N_IMAGES, HEIGHT, WIDTH = 8, 94, 310  # the synthetic scene of the mip_4096 shap
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds below.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # Kernel vs plain version on the same inputs. Forward: one f32 prefix sum
 # in another order; backward: a suffix sum of products on top of it.
 FWD_ATOL, BWD_ATOL = 1e-6, 1e-5
@@ -80,6 +92,7 @@ NGP_K1_SHAPE = (8192, 128)  # NGP: batch x max_samples, once per step and render
 SCAN_BYTES, SCAN_OPS = 8, 1
 SCAN_PATH = (262144, 16)  # batch 8192 x sample_budget 32 points, 8F = 16 lanes
 SCAN_SHAPES = [SCAN_PATH, (1048576, 16), (16777216, 16),  # path, budget 0, 16.8M rows
+               (osplit_bwd.SAMPLES, osplit_bwd.LANES),  # the osplit probe's per-level scan
                (1, 8), (7, 8), (4097, 8), (1, 128), (7, 128), (4097, 128)]
 # A float32 prefix sum in any order is off the exact sum by a few ulps of
 # the running sum of |x| (its deepest chain here is ~550 adds at 16.8M rows,
@@ -88,9 +101,20 @@ SCAN_SHAPES = [SCAN_PATH, (1048576, 16), (16777216, 16),  # path, budget 0, 16.8
 # and for the two against each other.
 SCAN_RTOL = 1e-5
 NGP_LEVELS = 16
+# K2b: the osplit probe's 16 levels x 8192*64 points x 8F lanes, and edges.
+SCAN_BATCHED_PATH = (NGP_LEVELS, osplit_bwd.SAMPLES, osplit_bwd.LANES)
+SCAN_BATCHED_SHAPES = [SCAN_BATCHED_PATH, (3, 100, 16), (3, 1025, 16), (1, 1, 8), (2, 7, 128),
+                       (5, 4097, 8)]
+# P1 and P2: the gather probe's queries, then partial last tiles; P2 also on
+# a table of 4 chunks, so the tiles wrap around them many times.
+GATHER_QUERIES = gather_attack.QUERIES
+GATHER_EDGE_QUERIES = (1, 2049, 100003)
+ONEHOT_WRAP_ROWS = 4 * chunk_gather.ONEHOT_CHUNK
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
+GATHER_SOURCE = "outdoor_nerf_depth_torch/csrc/chunk_gather.cu"
+KERNEL_IDS = ("K1a", "K1b", "K2a", "K2b", "P1", "P2")
 
 
 def emit(obj):
@@ -98,8 +122,26 @@ def emit(obj):
 
 
 def bound_ms(shape, bytes_per, ops_per):
-    n = shape[0] * shape[1]
+    n = math.prod(shape)
     return 1e3 * max(n * bytes_per / HBM_BYTES_PER_S, n * ops_per / FP32_FLOPS_PER_S)
+
+
+def take_bound_ms(queries, chunk):
+    """P1: read each index (4 B) and the table once, write each 64-byte row."""
+    return 1e3 * (queries * (4 + 4 * chunk_gather.LANES) + chunk * 4 * chunk_gather.LANES) \
+        / HBM_BYTES_PER_S
+
+
+def onehot_bound(queries, rows, chunk, tile):
+    """P2: (bound ms, what bounds it). Bytes: each index and each 64-byte
+    output row once, each distinct chunk of bf16 rows once; operations: the
+    one-hot products."""
+    tiles = -(-queries // tile)
+    chunk_bytes = chunk * chunk_gather.LANES * 2
+    out_bytes = queries * (4 + 4 * chunk_gather.LANES)
+    bytes_s = (out_bytes + min(tiles, rows // chunk) * chunk_bytes) / HBM_BYTES_PER_S
+    ops_s = tiles * tile * chunk * chunk_gather.LANES * 2 / BF16_FLOPS_PER_S
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
 
 
 def linear_flops(modules, n):
@@ -182,7 +224,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    sources = [volren_weights.SOURCE, prefix_scan.SOURCE]
+    sources = [volren_weights.SOURCE, prefix_scan.SOURCE, chunk_gather.SOURCE]
     reports = cuda_build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.relpath(cuda_build.library_path(s), REPO) for s in sources],
@@ -232,6 +274,93 @@ def _check_scan(x):
     return err
 
 
+def _check_scan_batched(x):
+    """K2b and torch.cumsum(dim=1) against a float64 scan, as `_check_scan`;
+    and no carry leaks across batch elements: row 0 of each is its input."""
+    got = prefix_scan.cumsum_batched_cuda(x)
+    plain = prefix_scan.cumsum_batched_plain(x)
+    torch.cuda.synchronize()
+    xt = x.double().transpose(1, 2).contiguous()  # scan along the contiguous axis
+    ref = torch.cumsum(xt, dim=2).transpose(1, 2)
+    scale = torch.cumsum(xt.abs(), dim=2).transpose(1, 2) + 1.0
+    del xt
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite K2b output at {tuple(x.shape)}")
+    if not torch.equal(got[:, 0], x[:, 0]):
+        raise AssertionError(f"K2b leaks a carry into row 0 at {tuple(x.shape)}")
+    err = {
+        "kernel_vs_plain_abs": float((got - plain).abs().max()),
+        "kernel_vs_plain": float(((got.double() - plain.double()).abs() / scale).max()),
+        "kernel_vs_f64": float(((got.double() - ref).abs() / scale).max()),
+        "plain_vs_f64": float(((plain.double() - ref).abs() / scale).max()),
+    }
+    del ref, scale
+    if max(err["kernel_vs_f64"], err["plain_vs_f64"]) > SCAN_RTOL \
+            or err["kernel_vs_plain"] > 2 * SCAN_RTOL:
+        raise AssertionError(f"K2b disagrees at {tuple(x.shape)}: {err} (tol {SCAN_RTOL})")
+    return err
+
+
+def _gather_inputs(gen, queries, high, rows, dtype):
+    """int32 indices in [0, high), the first 0 and the last high - 1, and a
+    [rows, 16] table of normal values in `dtype`."""
+    idx = torch.randint(0, high, (queries,), generator=gen, device="cuda", dtype=torch.int32)
+    idx[0], idx[-1] = 0, high - 1
+    table = torch.randn((rows, chunk_gather.LANES), generator=gen, device="cuda").to(dtype)
+    return idx, table
+
+
+def _exact(name, got, want):
+    """Max abs error of a gather kernel against its plain version; must be 0."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite values")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if err != 0.0:
+        raise AssertionError(f"{name} differs from its plain version by {err}")
+    return err
+
+
+def _gather_kernels(gen):
+    """P1 and P2 against their plain versions (exact), then timed at the
+    gather probe's shapes with their plain versions and index_select."""
+    take, onehot = chunk_gather.TAKE_CHUNK, chunk_gather.ONEHOT_CHUNK
+    tile = chunk_gather.ONEHOT_TILE
+    errors = {"P1": {}, "P2": {}}
+    for q in (GATHER_QUERIES,) + GATHER_EDGE_QUERIES:
+        idx, table = _gather_inputs(gen, q, take, take, torch.float32)
+        errors["P1"][str(q)] = _exact(f"P1 at {q} queries",
+                                      chunk_gather.take_from_chunk_cuda(idx, table),
+                                      chunk_gather.take_from_chunk_plain(idx, table))
+    cases = [(GATHER_QUERIES, gather_attack.ONEHOT_ROWS)] + \
+        [(q, ONEHOT_WRAP_ROWS) for q in GATHER_EDGE_QUERIES]
+    for q, rows in cases:
+        idx, table = _gather_inputs(gen, q, onehot, rows, torch.bfloat16)
+        errors["P2"][f"{q}q_{rows}rows"] = _exact(
+            f"P2 at {q} queries, {rows} rows", chunk_gather.onehot_extract_cuda(idx, table),
+            chunk_gather.onehot_extract_plain(idx, table))
+
+    timing = {}
+    q = GATHER_QUERIES
+    idx, table = _gather_inputs(gen, q, take, take, torch.float32)
+    timing["P1"] = {"queries": q, "chunk": take,
+                    "ms": device_ms(lambda: chunk_gather.take_from_chunk_cuda(idx, table)),
+                    "plain_ms": device_ms(lambda: chunk_gather.take_from_chunk_plain(idx, table)),
+                    "library_ms": device_ms(lambda: torch.index_select(table, 0, idx)),
+                    "bound_ms": take_bound_ms(q, take), "bound_by": "bytes"}
+    rows = gather_attack.ONEHOT_ROWS
+    idx, table = _gather_inputs(gen, q, onehot, rows, torch.bfloat16)
+    global_rows = chunk_gather.onehot_rows(q, rows, onehot, tile, "cuda") + idx
+    bound, bound_by = onehot_bound(q, rows, onehot, tile)
+    timing["P2"] = {"queries": q, "table_rows": rows, "chunk": onehot, "tile": tile,
+                    "ms": device_ms(lambda: chunk_gather.onehot_extract_cuda(idx, table)),
+                    "plain_ms": device_ms(lambda: chunk_gather.onehot_extract_plain(idx, table)),
+                    "library_ms": device_ms(
+                        lambda: torch.index_select(table, 0, global_rows).to(torch.float32)),
+                    "bound_ms": bound, "bound_by": bound_by}
+    return errors, timing
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda shape: 2.0 * torch.rand(shape, generator=gen, device="cuda")
@@ -274,6 +403,19 @@ def phase_kernels():
                                 "plain_ms": plain, "library_ms": plain,
                                 "bound_ms": bound_ms(shape, SCAN_BYTES, SCAN_OPS)}
         del x
+
+    batched_errors, batched_timing = {}, {}
+    for shape in SCAN_BATCHED_SHAPES:
+        x = randn(shape)
+        key = "x".join(str(d) for d in shape)
+        batched_errors[key] = _check_scan_batched(x)
+        if shape == SCAN_BATCHED_PATH:
+            plain = device_ms(lambda: prefix_scan.cumsum_batched_plain(x))
+            batched_timing[key] = {"ms": device_ms(lambda: prefix_scan.cumsum_batched_cuda(x)),
+                                   "plain_ms": plain, "library_ms": plain,
+                                   "bound_ms": bound_ms(shape, SCAN_BYTES, SCAN_OPS)}
+        del x
+    gather_errors, gather_timing = _gather_kernels(gen)
     emit({"phase": "kernels",
           "max_abs_err": {k: {"fwd": f, "bwd": b} for k, (f, b) in errors.items()},
           "tolerance": {"fwd": FWD_ATOL, "bwd": BWD_ATOL},
@@ -286,8 +428,19 @@ def phase_kernels():
           "scan_tolerance": {"vs_f64_rel_to_running_abs_sum": SCAN_RTOL,
                              "kernel_vs_plain": 2 * SCAN_RTOL},
           "scan_timing": scan_timing,
-          "scan_library": "torch.cumsum(x, dim=0)"})
-    return errors, timing, scan_errors, scan_timing
+          "scan_library": "torch.cumsum(x, dim=0)",
+          "scan_batched_errors": batched_errors,
+          "scan_batched_timing": batched_timing,
+          "scan_batched_library": "torch.cumsum(x, dim=1)",
+          "gather_max_abs_err": gather_errors, "gather_tolerance": 0.0,
+          "gather_timing": gather_timing,
+          "gather_library": {"P1": "torch.index_select(table, 0, idx)",
+                             "P2": "torch.index_select(table, 0, rows).float(), "
+                                   "row ids computed beforehand"}})
+    return {"errors": errors, "timing": timing, "scan_errors": scan_errors,
+            "scan_timing": scan_timing, "batched_errors": batched_errors,
+            "batched_timing": batched_timing, "gather_errors": gather_errors,
+            "gather_timing": gather_timing}
 
 
 def _flagship_config(exp_dir):
@@ -312,12 +465,19 @@ def _scene(config, split, seed):
 
 def _launches():
     return {"K1a": volren_weights.FWD_LAUNCHES, "K1b": volren_weights.BWD_LAUNCHES,
-            "K2a": prefix_scan.LAUNCHES}
+            "K2a": prefix_scan.LAUNCHES, "K2b": prefix_scan.BATCHED_LAUNCHES,
+            "P1": chunk_gather.TAKE_LAUNCHES, "P2": chunk_gather.ONEHOT_LAUNCHES}
+
+
+def _only(**counts):
+    """Launch counts of every kernel: those given, 0 for the others."""
+    return {k: counts.get(k, 0) for k in KERNEL_IDS}
 
 
 def _reset_launches():
     volren_weights.reset_launch_counts()
     prefix_scan.reset_launch_counts()
+    chunk_gather.reset_launch_counts()
 
 
 def _check_history(history, steps):
@@ -340,7 +500,7 @@ def phase_train(exp_dir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _launches()
-    if launches != {"K1a": 3 * STEPS, "K1b": 3 * STEPS, "K2a": 0}:
+    if launches != _only(K1a=3 * STEPS, K1b=3 * STEPS):
         raise AssertionError(f"expected 3 K1a and 3 K1b launches per step, got {launches}")
     _check_history(history, STEPS)
     step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
@@ -411,7 +571,7 @@ def phase_render(config, model):
     # resampling passes that on: 1e-3 of slack on rgb in [0, 1], relative
     # 1e-3 on distances.
     out = _render_check(config, model, mlp_forward_flops,
-                        lambda chunks: {"K1a": 3 * chunks, "K1b": 0, "K2a": 0}, "render", 1e-3)
+                        lambda chunks: _only(K1a=3 * chunks), "render", 1e-3)
     emit(out)
     return out["launches"]
 
@@ -537,7 +697,7 @@ def phase_ngp_train(exp_dir):
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = _launches()
-    want = {"K1a": NGP_STEPS, "K1b": NGP_STEPS, "K2a": NGP_LEVELS * NGP_STEPS}
+    want = _only(K1a=NGP_STEPS, K1b=NGP_STEPS, K2a=NGP_LEVELS * NGP_STEPS)
     if launches != want:
         raise AssertionError(f"expected {want} launches in {NGP_STEPS} NGP steps, got {launches}")
     if scan_shapes != {SCAN_PATH}:
@@ -589,12 +749,67 @@ def phase_ngp_render(config, model):
     # exp/pow sum and round in another order on the card: 1e-3 on rgb in
     # [0, 1], relative 1e-3 on distances.
     out = _render_check(config, model, ngp_forward_flops,
-                        lambda chunks: {"K1a": chunks, "K1b": 0, "K2a": 0}, "ngp_render", 1e-3)
+                        lambda chunks: _only(K1a=chunks), "ngp_render", 1e-3)
     emit(out)
     return out["launches"]
 
 
-def summary(errors, timing, scan_errors, scan_timing, launches):
+def _check_probe_times(label, results):
+    bad = {k: v for k, v in results.items() if k.endswith(("_s", "_ns_per_row"))
+           and not (isinstance(v, float) and math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{label}: times not finite and positive: {bad}")
+
+
+def _per_call(label, counted, per_call):
+    """A timed group's launches must be `per_call` for each of its calls."""
+    if counted["calls"] <= 0 or counted["launches"] != per_call * counted["calls"]:
+        raise AssertionError(f"{label}: expected {per_call} launches per call, got {counted}")
+
+
+def phase_probe_osplit_bwd():
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = osplit_bwd.run(device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    _check_probe_times("probe_osplit_bwd", results)
+    if not results["merged_matches"]:
+        raise AssertionError(f"merged row sums disagree: {results['merged_max_abs_diff']}")
+    groups = results["launches"]
+    _per_call("osplit fwd+bwd K2a", groups["osplit_fwd_bwd"], NGP_LEVELS)
+    _per_call("one-level K2a", groups["cumsum_kernel_1lvl"], 1)
+    _per_call("16 separate K2a", groups["cumsum_kernel_16_separate"], NGP_LEVELS)
+    _per_call("batched K2b", groups["cumsum_kernel_batched"], 1)
+    if launches["K2b"] != groups["cumsum_kernel_batched"]["launches"]:
+        raise AssertionError(f"K2b launched outside its timed calls: {launches}")
+    emit({"phase": "probe_osplit_bwd", "seconds": seconds, "kernel_launches": launches,
+          **results})
+    return launches
+
+
+def phase_probe_gather():
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = gather_attack.run(device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    _check_probe_times("probe_gather", results)
+    _per_call("P1", results["launches"]["P1"], 1)
+    _per_call("P2", results["launches"]["P2"], 1)
+    if results["C_max_abs_err"] != 0.0 or results["D_max_abs_err"] != 0.0:
+        raise AssertionError(f"P1/P2 differ from index_select: {results['C_max_abs_err']}, "
+                             f"{results['D_max_abs_err']}")
+    if launches["P1"] <= 0 or launches["P2"] <= 0:
+        raise AssertionError(f"P1 or P2 not launched by the gather probe: {launches}")
+    emit({"phase": "probe_gather", "seconds": seconds, "kernel_launches": launches, **results})
+    return launches
+
+
+def summary(k, launches):
+    errors, timing = k["errors"], k["timing"]
+    scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
+
     def per_step(key, shapes):
         return sum(timing[f"{r}x{s}"][key] for r, s in shapes)
 
@@ -640,13 +855,32 @@ def summary(errors, timing, scan_errors, scan_timing, launches):
          "library_ms": NGP_LEVELS * scan_timing[path]["library_ms"],
          "per_call": scan_timing},
     ]
+    batched = "x".join(str(d) for d in SCAN_BATCHED_PATH)
+    bt = k["batched_timing"][batched]
+    kernels.append(
+        {"name": "K2b prefix_scan_batched", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:117",
+         "launches": launches["probe_osplit_bwd"]["K2b"], "launches_by_phase": by_phase("K2b"),
+         "max_abs_err": k["batched_errors"][batched]["kernel_vs_plain_abs"],
+         "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
+                                               for e in k["batched_errors"].values()),
+         "work": f"one call at {list(SCAN_BATCHED_PATH)} float32",
+         "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
+         "bound_by": "bytes", "library_ms": bt["library_ms"]})
+    for kid, name, line in (("P1", "P1 chunk_take", 111), ("P2", "P2 onehot_extract", 158)):
+        # Timing keys (ms, plain_ms, library_ms, bound_ms, bound_by) and shape.
+        kernels.append(dict(
+            k["gather_timing"][kid], name=name, route="cuda", source=GATHER_SOURCE,
+            replaces=f"benchmarks/probes/gather_attack_probe.py:{line}",
+            launches=launches["probe_gather"][kid], launches_by_phase=by_phase(kid),
+            max_abs_err=max(k["gather_errors"][kid].values())))
     emit({"kernels": kernels})
 
 
 def main():
     phase_device()
     phase_build()
-    errors, timing, scan_errors, scan_timing = phase_kernels()
+    k = phase_kernels()
     launches = {}
     with tempfile.TemporaryDirectory() as exp_dir:
         config, model, launches["train"] = phase_train(exp_dir)
@@ -661,7 +895,11 @@ def main():
     update = step_lib.make_occupancy_update_fn(ngp_config, ngp_model)
     gen = torch.Generator(device="cuda").manual_seed(3)
     _profile("ngp_refresh_profile", lambda i: update(ngp_model.occupancy, gen, i == 0), 2)
-    summary(errors, timing, scan_errors, scan_timing, launches)
+    del ngp_model, update
+    torch.cuda.empty_cache()
+    launches["probe_osplit_bwd"] = phase_probe_osplit_bwd()
+    launches["probe_gather"] = phase_probe_gather()
+    summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -171,6 +171,29 @@ def _oct_split_row_sums(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> t
     return ge - torch.cat([ge.new_zeros((1, lanes)), ge[:-1]], dim=0)
 
 
+def _oct_split_row_sums_merged(idx: torch.Tensor, vals: torch.Tensor,
+                               n_rows: int) -> torch.Tensor:
+    """The same row sums by the reference's "merged" pipeline.
+
+    One sort over m + n_rows keys interleaves data keys 2 idx with one
+    sentinel key 2 r + 1 per row; the bf16-rounded values gathered in that
+    order (sentinels carry 0) are prefix-summed in f32 (K2a on the GPU), so
+    the prefix at row r's sentinel is the total of rows <= r. A stable
+    partition finds the sentinels, and row sums are adjacent differences.
+    The reference selects it with an environment switch; here only the
+    osplit backward probe calls it, and training keeps `_oct_split_row_sums`.
+    """
+    m, lanes = vals.shape
+    vals = vals.to(torch.bfloat16)
+    rows = torch.arange(n_rows, device=idx.device, dtype=idx.dtype)
+    sorted_keys, pos = torch.sort(torch.cat([idx * 2, rows * 2 + 1]), stable=True)
+    gathered = vals[torch.clamp(pos, max=m - 1)].to(torch.float32)
+    csum = prefix_scan.cumsum(torch.where((pos < m)[:, None], gathered, 0.0))
+    _, order = torch.sort((sorted_keys & 1) ^ 1, stable=True)
+    at_sentinel = csum[order[:n_rows]]
+    return at_sentinel - torch.cat([at_sentinel.new_zeros((1, lanes)), at_sentinel[:-1]], dim=0)
+
+
 def _trilinear_dx(x: torch.Tensor, resolutions, s: torch.Tensor) -> torch.Tensor:
     """dL/dx from per-corner sums s [..., L, 8]: dw/dx_d = res sign_d prod_{d' != d} f_d'."""
     xc = torch.clamp(x, 0.0, 1.0)

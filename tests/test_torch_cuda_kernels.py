@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import hashgrid, prefix_scan, volren_weights
+from outdoor_nerf_depth_torch.ops import chunk_gather, hashgrid, prefix_scan, volren_weights
 
 # Forward: one f32 prefix sum in another order; backward: a suffix sum of
 # products on top of it.
@@ -91,3 +91,47 @@ def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
     # Row sums are differences of f32 prefix sums over up to 4096 products
     # of |w g| <= 4: their rounding scales with the prefix, ~1e-3 at most.
     torch.testing.assert_close(grad_gpu, enc_cpu.table.grad, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(16, 524288, 16), (3, 100, 16), (3, 1025, 16), (1, 1, 8),
+                                   (2, 7, 128), (5, 4097, 8)])
+def test_batched_prefix_scan_matches_plain(cuda_device, shape):
+    x = torch.from_numpy(np.random.RandomState(14).randn(*shape).astype(np.float32)).to(cuda_device)
+    prefix_scan.reset_launch_counts()
+    got = prefix_scan.cumsum_batched(x)
+    assert prefix_scan.BATCHED_LAUNCHES == 1 and prefix_scan.LAUNCHES == 0
+    want = prefix_scan.cumsum_batched_plain(x)
+    scale = torch.cumsum(x.abs().double(), dim=1) + 1.0
+    assert float(((got - want).abs() / scale).max()) < 1e-5
+    # No carry crosses a batch element: each one's row 0 is its input.
+    assert torch.equal(got[:, 0], x[:, 0])
+
+
+def _gather_inputs(device, queries, high, rows, dtype, seed):
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, high, queries).astype(np.int32)
+    idx[0], idx[-1] = 0, high - 1
+    table = torch.from_numpy(rng.randn(rows, chunk_gather.LANES).astype(np.float32))
+    return torch.from_numpy(idx).to(device), table.to(dtype).to(device)
+
+
+@pytest.mark.parametrize("queries", [1, 2049, 100003, 8388608])
+def test_chunk_take_matches_plain_exactly(cuda_device, queries):
+    chunk = chunk_gather.TAKE_CHUNK
+    idx, table = _gather_inputs(cuda_device, queries, chunk, chunk, torch.float32, 15)
+    chunk_gather.reset_launch_counts()
+    got = chunk_gather.take_from_chunk(idx, table)
+    assert chunk_gather.TAKE_LAUNCHES == 1
+    assert torch.equal(got, chunk_gather.take_from_chunk_plain(idx, table))
+
+
+@pytest.mark.parametrize("queries,rows,chunk,tile", [
+    (1, 2048, 512, 256), (2049, 2048, 512, 256), (100003, 2048, 512, 256),
+    (8388608, 2**19 * 12, 512, 256), (1000, 96, 32, 16), (777, 4096, 1024, 64)])
+def test_onehot_extract_matches_plain_exactly(cuda_device, queries, rows, chunk, tile):
+    idx, table = _gather_inputs(cuda_device, queries, chunk, rows, torch.bfloat16, 16)
+    chunk_gather.reset_launch_counts()
+    got = chunk_gather.onehot_extract(idx, table, chunk, tile)
+    assert chunk_gather.ONEHOT_LAUNCHES == 1
+    # A one-hot product of bf16 values summed in f32 is exact.
+    assert torch.equal(got, chunk_gather.onehot_extract_plain(idx, table, chunk, tile))

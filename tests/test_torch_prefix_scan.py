@@ -51,3 +51,35 @@ def test_cpu_uses_the_plain_version_and_counts_no_launch():
         prefix_scan.cumsum(torch.ones((10, 16), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         prefix_scan.cumsum_cuda(torch.ones((10, 16)))
+
+
+@pytest.mark.parametrize("shape", [(3, 100, 16), (3, 1025, 16), (2, 700, 8), (2, 300, 128)])
+def test_batched_matches_pallas_interpret(shape):
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    want = np.asarray(pallas_scan.cumsum_batched(jnp.asarray(x), block_rows=32, interpret=True))
+    got = prefix_scan.cumsum_batched(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == shape
+    # The reference's own tolerance for its blocked scan (see above).
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+    # No carry crosses a batch element: each one's row 0 is its input.
+    np.testing.assert_array_equal(got[:, 0].numpy(), x[:, 0])
+
+
+@pytest.mark.parametrize("shape,match", [((2, 8, 48), "divide"), ((2, 8, 0), "divide"),
+                                         ((8, 16), "3-D"), ((2, 2, 8, 16), "3-D")])
+def test_batched_bad_shapes_raise(shape, match):
+    with pytest.raises(ValueError, match=match):
+        prefix_scan.cumsum_batched(torch.ones(shape))
+
+
+def test_batched_cpu_uses_the_plain_version_and_counts_no_launch():
+    prefix_scan.reset_launch_counts()
+    x = torch.ones((2, 10, 16), dtype=torch.bfloat16)
+    got = prefix_scan.cumsum_batched(x)
+    assert got.dtype == torch.bfloat16 and float(got[1, -1, 0]) == 10.0
+    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
+    with pytest.raises(ValueError, match="no prefix-scan implementation"):
+        prefix_scan.cumsum_batched(torch.ones((2, 10, 16), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        prefix_scan.cumsum_batched_cuda(torch.ones((2, 10, 16)))
