@@ -10,7 +10,9 @@ non-zero without the final line:
   kernels     each kernel against its plain PyTorch version on the card, at the
               shapes of the paths and at edge cases (K2b at the osplit probe's
               [16, 524288, 16], P1 and P2 at the gather probe's 8.4M queries,
-              which must match bit for bit); times from CUDA events
+              which must match bit for bit); times from CUDA events, with
+              K1a also for one ray (its launch floor) and P2 also at chunks
+              of 256 and 1024 rows (same bytes, other k-step counts)
   train       the port's own train() on the flagship config
               (configs/kitti_mipnerf360.json, full widths, batch 4096, float32)
               on the synthetic scene of 8 images of 94x310, for a few steps;
@@ -87,6 +89,11 @@ BWD_BYTES, BWD_OPS = 16, 4
 TRAIN_SHAPES = [(4096, 64), (4096, 64), (4096, 32)]  # per step: 2 prop levels + nerf
 RENDER_SHAPE = (16384, 32)  # nerf level of one render chunk (prop levels: S=64)
 NGP_K1_SHAPE = (8192, 128)  # NGP: batch x max_samples, once per step and render chunk
+# K1 error cases beyond the path's shapes. K1a takes its float4 build where
+# S > 96 and S % 4 == 0 ((130, 192)), its float2 build where 32 < S <= 64 and
+# S is even, and its scalar build elsewhere ((7, 33), (5, 126), (9, 66)).
+K1_EDGE_SHAPES = [(7, 33), (130, 192), (5, 126), (9, 66)]
+K1_FLOOR_SHAPE = (1, 64)  # one ray: K1a's time per call is then launch and latency
 # K2a: one inclusive scan per hash level on the [points, 8F] table-gradient
 # stream. Per element: read 4 B, write 4 B, one add.
 SCAN_BYTES, SCAN_OPS = 8, 1
@@ -110,6 +117,7 @@ SCAN_BATCHED_SHAPES = [SCAN_BATCHED_PATH, (3, 100, 16), (3, 1025, 16), (1, 1, 8)
 GATHER_QUERIES = gather_attack.QUERIES
 GATHER_EDGE_QUERIES = (1, 2049, 100003)
 ONEHOT_WRAP_ROWS = 4 * chunk_gather.ONEHOT_CHUNK
+ONEHOT_SCALING_CHUNKS = (256, 1024)  # P2 timed beside the probe's 512 as well
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -339,6 +347,20 @@ def _gather_kernels(gen):
         errors["P2"][f"{q}q_{rows}rows"] = _exact(
             f"P2 at {q} queries, {rows} rows", chunk_gather.onehot_extract_cuda(idx, table),
             chunk_gather.onehot_extract_plain(idx, table))
+    # Tiles of 64 over a table of 2 chunks: each chunk serves every other tile.
+    q, rows = GATHER_EDGE_QUERIES[-1], 2 * onehot
+    idx, table = _gather_inputs(gen, q, onehot, rows, torch.bfloat16)
+    errors["P2"][f"{q}q_{rows}rows_tile64"] = _exact(
+        f"P2 at tile 64 over {rows} rows", chunk_gather.onehot_extract_cuda(idx, table, onehot, 64),
+        chunk_gather.onehot_extract_plain(idx, table, onehot, 64))
+    # Indices outside [0, chunk) give zero rows; the others their rows.
+    idx, table = _gather_inputs(gen, q, onehot, ONEHOT_WRAP_ROWS, torch.bfloat16)
+    idx[::7], idx[3::11] = onehot, -1
+    bad = (idx < 0) | (idx >= onehot)
+    got = chunk_gather.onehot_extract_cuda(idx, table)
+    want = torch.where(bad[:, None], 0.0,
+                       chunk_gather.onehot_extract_plain(idx.clamp(0, onehot - 1), table))
+    errors["P2"][f"{q}q_out_of_range"] = _exact("P2 with indices outside [0, chunk)", got, want)
 
     timing = {}
     q = GATHER_QUERIES
@@ -358,6 +380,20 @@ def _gather_kernels(gen):
                     "library_ms": device_ms(
                         lambda: torch.index_select(table, 0, global_rows).to(torch.float32)),
                     "bound_ms": bound, "bound_by": bound_by}
+    # What bounds P2: the same queries and table at other chunk sizes move
+    # the same bytes through k-steps in proportion to chunk. The bound is the
+    # bytes' up to 512 rows; at 1024 the bf16 products bound it.
+    by_chunk = {}
+    for c in ONEHOT_SCALING_CHUNKS:
+        idx_c = torch.randint(0, c, (q,), generator=gen, device="cuda", dtype=torch.int32)
+        errors["P2"][f"{q}q_chunk{c}"] = _exact(
+            f"P2 at chunk {c}", chunk_gather.onehot_extract_cuda(idx_c, table, c, tile),
+            chunk_gather.onehot_extract_plain(idx_c, table, c, tile))
+        bound_c, bound_by_c = onehot_bound(q, rows, c, tile)
+        by_chunk[str(c)] = {"ms": device_ms(lambda: chunk_gather.onehot_extract_cuda(
+                                idx_c, table, c, tile)),
+                            "bound_ms": bound_c, "bound_by": bound_by_c}
+    timing["P2"]["by_chunk"] = by_chunk
     return errors, timing
 
 
@@ -366,8 +402,7 @@ def phase_kernels():
     rand = lambda shape: 2.0 * torch.rand(shape, generator=gen, device="cuda")
     randn = lambda shape: torch.randn(shape, generator=gen, device="cuda")
     cases = {f"{r}x{s}": rand((r, s)) for r, s in
-             [(4096, 64), (4096, 32), (16384, 32), (16384, 64), NGP_K1_SHAPE, (7, 33),
-              (130, 192)]}
+             [(4096, 64), (4096, 32), (16384, 32), (16384, 64), NGP_K1_SHAPE] + K1_EDGE_SHAPES}
     saturated = rand((256, 32))
     saturated[:, :4] = 10.0  # an opaque wall: later weights and gradients ~0
     cases["saturated_256x32"] = saturated
@@ -389,6 +424,9 @@ def phase_kernels():
             "bwd_plain_ms": device_ms(lambda: volren_weights.weights_from_tau_bwd_plain(g, w, e)),
             "bwd_bound_ms": bound_ms(shape, BWD_BYTES, BWD_OPS),
         }
+    tau = rand(K1_FLOOR_SHAPE)
+    timing["floor"] = {"shape": list(K1_FLOOR_SHAPE),
+                       "fwd_ms": device_ms(lambda: volren_weights.weights_fwd_cuda(tau))}
 
     scan_errors, scan_timing = {}, {}
     for shape in SCAN_SHAPES:
@@ -822,7 +860,7 @@ def summary(k, launches):
           "launches_note": "mip train + NGP train runs"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     kernels = [
-        dict(k1, name="K1a volren_weights_fwd",
+        dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:54",
              launches=launches["train"]["K1a"] + launches["ngp_train"]["K1a"],
              launches_by_phase=by_phase("K1a"),
@@ -831,7 +869,8 @@ def summary(k, launches):
              bound_ms=per_step("fwd_bound_ms", TRAIN_SHAPES), bound_by="bytes",
              ngp_step={"shape": list(NGP_K1_SHAPE), "ms": timing[ngp]["fwd_ms"],
                        "plain_ms": timing[ngp]["fwd_plain_ms"],
-                       "bound_ms": timing[ngp]["fwd_bound_ms"]}),
+                       "bound_ms": timing[ngp]["fwd_bound_ms"]},
+             floor_ms=timing["floor"]["fwd_ms"], floor_shape=timing["floor"]["shape"]),
         dict(k1, name="K1b volren_weights_bwd",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:72",
              launches=launches["train"]["K1b"] + launches["ngp_train"]["K1b"],
@@ -867,13 +906,14 @@ def summary(k, launches):
          "work": f"one call at {list(SCAN_BATCHED_PATH)} float32",
          "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
          "bound_by": "bytes", "library_ms": bt["library_ms"]})
-    for kid, name, line in (("P1", "P1 chunk_take", 111), ("P2", "P2 onehot_extract", 158)):
+    for kid, name, line, extra in (("P1", "P1 chunk_take", 111, {}),
+                                   ("P2", "P2 onehot_extract", 158, {"redesigned": "PR 4"})):
         # Timing keys (ms, plain_ms, library_ms, bound_ms, bound_by) and shape.
         kernels.append(dict(
             k["gather_timing"][kid], name=name, route="cuda", source=GATHER_SOURCE,
             replaces=f"benchmarks/probes/gather_attack_probe.py:{line}",
             launches=launches["probe_gather"][kid], launches_by_phase=by_phase(kid),
-            max_abs_err=max(k["gather_errors"][kid].values())))
+            max_abs_err=max(k["gather_errors"][kid].values()), **extra))
     emit({"kernels": kernels})
 
 

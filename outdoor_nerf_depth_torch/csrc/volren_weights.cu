@@ -19,16 +19,31 @@
 // memory.
 //
 // Bound: memory. K1a reads tau and writes w and e, 12 B per sample; K1b
-// reads g, w and e and writes dtau, 16 B per sample. Each does a handful of
-// flops and two (K1a) or zero (K1b) exponentials per sample, far below the
-// card's rate. At the train step's [4096, 64] f32, K1a moves 3 MiB, about
-// 0.9 us at 3.35 TB/s, so launch latency dominates its time; fusing it with
-// the optical depth and compositing is the way to make it faster.
+// reads g, w and e and writes dtau, 16 B per sample, with a handful of
+// flops per sample, far below the card's rate.
+//
+// K1a moves each lane's k samples in one access per array: a float4 when
+// k = 4 and a float2 when k = 2, if S is a multiple of k and the three
+// arrays are aligned to it, so a warp reads or writes 32 * 4k contiguous
+// bytes per instruction (512 B at S = 128). Other S (k = 1 or 3, ragged S,
+// unaligned views) take the scalar variant; at k = 1 it is coalesced
+// already. It computes one exp per sample: the transmittance exp(-P) is
+// carried from a sample to the next, because P_{i+1} = P_i + tau_i is the
+// same f32 value the next sample starts from, so w and e are bit for bit
+// what two exps per sample give. What bounds it on the card: at NGP's
+// [8192, 128] the bytes (it runs close to their time at the HBM rate); at
+// the mip step's [4096, 64] and [4096, 32] (3 and 1.5 MiB) the fixed cost of
+// a launch, which chip_smoke.py reads as K1a's time for a single ray. The
+// design before this one (scalar loads and stores at a 4k-byte stride, two
+// exps per sample) took 10.03 us at [8192, 128] and 7.41 us per mip step
+// (2 x [4096, 64] + [4096, 32]) on one NVIDIA H100 80GB HBM3 at a 700 W
+// power limit (chip_smoke.py); PERF.md keeps the times of this one.
 //
 // Interface: plain C, loaded with ctypes. The kernels launch on the caller's
 // stream, allocate nothing, and each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -43,11 +58,50 @@ __device__ __forceinline__ float clamp_tau(float t) {
   return t > kTauMax ? kTauMax : t;
 }
 
-template <int K>
-__global__ void weights_fwd_kernel(const float* __restrict__ tau,
-                                   float* __restrict__ w,
-                                   float* __restrict__ e,
-                                   int rays, int samples) {
+// Loads samples first .. first + K - 1 (0 past the row's end), clamped. kVec
+// (K = 2 or 4): one K-wide access; the caller guarantees S % K == 0 and
+// rows aligned to it, so the K samples lie all inside the row or all past it.
+template <int K, bool kVec>
+__device__ __forceinline__ void load_samples(const float* __restrict__ row, int first, int samples,
+                                             float (&v)[K]) {
+  if constexpr (kVec && K == 4) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (first < samples) x = *reinterpret_cast<const float4*>(row + first);
+    v[0] = clamp_tau(x.x), v[1] = clamp_tau(x.y), v[2] = clamp_tau(x.z), v[3] = clamp_tau(x.w);
+  } else if constexpr (kVec && K == 2) {
+    float2 x = make_float2(0.f, 0.f);
+    if (first < samples) x = *reinterpret_cast<const float2*>(row + first);
+    v[0] = clamp_tau(x.x), v[1] = clamp_tau(x.y);
+  } else {
+    static_assert(!kVec, "vector access takes K = 2 or 4");
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int i = first + j;
+      v[j] = i < samples ? clamp_tau(row[i]) : 0.f;
+    }
+  }
+}
+
+// Stores x[0 .. K-1] at first .. first + K - 1, skipping what lies past the row.
+template <int K, bool kVec>
+__device__ __forceinline__ void store_samples(float* __restrict__ row, int first, int samples,
+                                              const float (&x)[K]) {
+  if constexpr (kVec && K == 4) {
+    if (first < samples)
+      *reinterpret_cast<float4*>(row + first) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (kVec && K == 2) {
+    if (first < samples) *reinterpret_cast<float2*>(row + first) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (first + j < samples) row[first + j] = x[j];
+  }
+}
+
+template <int K, bool kVec>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+weights_fwd_kernel(const float* __restrict__ tau, float* __restrict__ w, float* __restrict__ e,
+                   int rays, int samples) {
   const int ray = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & (kWarp - 1);
   if (ray >= rays) return;  // whole warps exit together
@@ -60,13 +114,10 @@ __global__ void weights_fwd_kernel(const float* __restrict__ tau,
   for (int base = 0; base < samples; base += kWarp * K) {
     const int first = base + lane * K;
     float v[K];
+    load_samples<K, kVec>(t_row, first, samples, v);
     float lane_sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int i = first + j;
-      v[j] = i < samples ? clamp_tau(t_row[i]) : 0.f;
-      lane_sum += v[j];
-    }
+    for (int j = 0; j < K; ++j) lane_sum += v[j];
     // Inclusive scan of the lane sums across the warp.
     float incl = lane_sum;
 #pragma unroll
@@ -79,17 +130,19 @@ __global__ void weights_fwd_kernel(const float* __restrict__ tau,
     const float chunk_total = __shfl_sync(kFull, incl, kWarp - 1);
 
     float p = carry + excl;
+    float trans = expf(-p);  // exp(-P) of this lane's first sample
+    float wv[K], ev[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int i = first + j;
       const float p_next = p + v[j];
       const float trans_next = expf(-p_next);
-      if (i < samples) {
-        w_row[i] = expf(-p) - trans_next;
-        e_row[i] = trans_next;
-      }
+      wv[j] = trans - trans_next;
+      ev[j] = trans_next;
+      trans = trans_next;
       p = p_next;
     }
+    store_samples<K, kVec>(w_row, first, samples, wv);
+    store_samples<K, kVec>(e_row, first, samples, ev);
     carry += chunk_total;
   }
 }
@@ -152,18 +205,38 @@ int per_lane(int samples) {
   return k < kMaxPerLane ? k : kMaxPerLane;
 }
 
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <int K, bool kVec>
+void launch_fwd(const float* tau, float* w, float* e, int rays, int samples, cudaStream_t stream) {
+  const dim3 grid((rays + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  weights_fwd_kernel<K, kVec><<<grid, kWarpsPerBlock * kWarp, 0, stream>>>(tau, w, e, rays,
+                                                                          samples);
+}
+
 }  // namespace
 
+// K1a. The vector variant runs where S is a multiple of k and tau, w and e
+// are aligned to 4k bytes (then so is every row); the scalar one elsewhere.
 extern "C" int volren_weights_fwd(const float* tau, float* w, float* e,
                                   int rays, int samples, cudaStream_t stream) {
   if (rays <= 0 || samples <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((rays + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * kWarp);
-  switch (per_lane(samples)) {
-    case 1: weights_fwd_kernel<1><<<grid, block, 0, stream>>>(tau, w, e, rays, samples); break;
-    case 2: weights_fwd_kernel<2><<<grid, block, 0, stream>>>(tau, w, e, rays, samples); break;
-    case 3: weights_fwd_kernel<3><<<grid, block, 0, stream>>>(tau, w, e, rays, samples); break;
-    default: weights_fwd_kernel<4><<<grid, block, 0, stream>>>(tau, w, e, rays, samples); break;
+  const int k = per_lane(samples);
+  const bool vec = (k == 2 || k == 4) && samples % k == 0 && aligned(tau, 4 * k) &&
+                   aligned(w, 4 * k) && aligned(e, 4 * k);
+  switch (k) {
+    case 1: launch_fwd<1, false>(tau, w, e, rays, samples, stream); break;
+    case 2:
+      if (vec) launch_fwd<2, true>(tau, w, e, rays, samples, stream);
+      else launch_fwd<2, false>(tau, w, e, rays, samples, stream);
+      break;
+    case 3: launch_fwd<3, false>(tau, w, e, rays, samples, stream); break;
+    default:
+      if (vec) launch_fwd<4, true>(tau, w, e, rays, samples, stream);
+      else launch_fwd<4, false>(tau, w, e, rays, samples, stream);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }

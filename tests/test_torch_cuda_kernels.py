@@ -33,7 +33,11 @@ def _inputs(shape, device, seed=11):
     return tau, g
 
 
-@pytest.mark.parametrize("shape", [(4096, 64), (4096, 32), (16384, 32), (7, 33), (130, 192), (3, 300)])
+# The path's shapes (NGP's [8192, 128] takes K1a's float4 build, [4096, 64]
+# its float2 one), then S off the path: (130, 192) and (3, 300) take the
+# float4 build too, (7, 33), (5, 126) and (9, 66) the scalar one.
+@pytest.mark.parametrize("shape", [(4096, 64), (4096, 32), (16384, 32), (8192, 128), (7, 33),
+                                   (130, 192), (3, 300), (5, 126), (9, 66)])
 def test_kernels_match_plain(cuda_device, shape):
     tau, g = _inputs(shape, cuda_device)
     w, e = volren_weights.weights_fwd_cuda(tau)
@@ -43,6 +47,31 @@ def test_kernels_match_plain(cuda_device, shape):
     dtau = volren_weights.weights_bwd_cuda(g, w, e)
     dtau_ref = volren_weights.weights_from_tau_bwd_plain(g, w_ref, e_ref)
     torch.testing.assert_close(dtau, dtau_ref, atol=BWD_ATOL, rtol=0)
+
+
+def test_forward_is_finite_with_an_opaque_background(cuda_device):
+    """One exp per sample (the transmittance carried along the ray) against
+    the plain version's two, with an infinite last tau."""
+    tau, _ = _inputs((256, 64), cuda_device, seed=17)
+    tau[:, -1] = float("inf")
+    w, e = volren_weights.weights_fwd_cuda(tau)
+    assert torch.isfinite(w).all() and torch.isfinite(e).all()
+    w_ref, e_ref = volren_weights.weights_from_tau_plain(tau)
+    torch.testing.assert_close(w, w_ref, atol=FWD_ATOL, rtol=0)
+    torch.testing.assert_close(e, e_ref, atol=FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(8192, 128), (4096, 64)])
+def test_forward_on_a_misaligned_view(cuda_device, shape):
+    """A contiguous view 4 bytes off its allocation takes the scalar variant."""
+    tau, _ = _inputs(shape, cuda_device, seed=18)
+    flat = torch.empty(tau.numel() + 1, device=cuda_device)
+    view = flat[1:].view(shape)
+    view.copy_(tau)
+    assert view.data_ptr() % 8 != 0
+    w, e = volren_weights.weights_fwd_cuda(view)
+    w_ref, e_ref = volren_weights.weights_fwd_cuda(tau)
+    assert torch.equal(w, w_ref) and torch.equal(e, e_ref)
 
 
 def test_function_launches_kernels_and_matches_cpu(cuda_device):
@@ -127,7 +156,8 @@ def test_chunk_take_matches_plain_exactly(cuda_device, queries):
 
 @pytest.mark.parametrize("queries,rows,chunk,tile", [
     (1, 2048, 512, 256), (2049, 2048, 512, 256), (100003, 2048, 512, 256),
-    (8388608, 2**19 * 12, 512, 256), (1000, 96, 32, 16), (777, 4096, 1024, 64)])
+    (8388608, 2**19 * 12, 512, 256), (1000, 96, 32, 16), (777, 4096, 1024, 64),
+    (100003, 4096, 256, 256), (3001, 480, 48, 32)])
 def test_onehot_extract_matches_plain_exactly(cuda_device, queries, rows, chunk, tile):
     idx, table = _gather_inputs(cuda_device, queries, chunk, rows, torch.bfloat16, 16)
     chunk_gather.reset_launch_counts()
@@ -135,3 +165,25 @@ def test_onehot_extract_matches_plain_exactly(cuda_device, queries, rows, chunk,
     assert chunk_gather.ONEHOT_LAUNCHES == 1
     # A one-hot product of bf16 values summed in f32 is exact.
     assert torch.equal(got, chunk_gather.onehot_extract_plain(idx, table, chunk, tile))
+
+
+def test_onehot_extract_out_of_range_rows_are_zero(cuda_device):
+    """An index outside [0, chunk) (chunk itself, -1) matches no k-step."""
+    chunk, tile, rows = 512, 256, 2048
+    idx, table = _gather_inputs(cuda_device, 4099, chunk, rows, torch.bfloat16, 19)
+    idx[::7] = chunk
+    idx[3::11] = -1
+    got = chunk_gather.onehot_extract(idx, table, chunk, tile)
+    bad = (idx < 0) | (idx >= chunk)
+    assert int(bad.sum()) > 0 and bool((got[bad] == 0).all())
+    want = chunk_gather.onehot_extract_plain(idx.clamp(0, chunk - 1), table, chunk, tile)
+    assert torch.equal(got[~bad], want[~bad])
+
+
+def test_onehot_extract_tiles_wrap_over_two_chunks(cuda_device):
+    """tile = 64 over a table of 2 chunks: 79 tiles, each chunk read by ~40."""
+    idx, table = _gather_inputs(cuda_device, 5003, 512, 1024, torch.bfloat16, 20)
+    chunk_gather.reset_launch_counts()
+    got = chunk_gather.onehot_extract(idx, table, 512, 64)
+    assert chunk_gather.ONEHOT_LAUNCHES == 1
+    assert torch.equal(got, chunk_gather.onehot_extract_plain(idx, table, 512, 64))
