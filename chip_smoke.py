@@ -10,9 +10,11 @@ non-zero without the final line:
   kernels     each kernel against its plain PyTorch version on the card, at the
               shapes of the paths and at edge cases (K2b at the osplit probe's
               [16, 524288, 16], P1 and P2 at the gather probe's 8.4M queries,
-              which must match bit for bit); times from CUDA events, with
-              K1a also for one ray (its launch floor) and P2 also at chunks
-              of 256 and 1024 rows (same bytes, other k-step counts)
+              which must match bit for bit; K2b also twice on one input,
+              its run-to-run difference); times from CUDA events, with K1a
+              and K1b also for one ray (their launch floor), K2b's single
+              pass also at K2a's shapes with B = 1, and P2 also at chunks of
+              256 and 1024 rows (same bytes, other k-step counts)
   train       the port's own train() on the flagship config
               (configs/kitti_mipnerf360.json, full widths, batch 4096, float32)
               on the synthetic scene of 8 images of 94x310, for a few steps;
@@ -93,7 +95,7 @@ NGP_K1_SHAPE = (8192, 128)  # NGP: batch x max_samples, once per step and render
 # S > 96 and S % 4 == 0 ((130, 192)), its float2 build where 32 < S <= 64 and
 # S is even, and its scalar build elsewhere ((7, 33), (5, 126), (9, 66)).
 K1_EDGE_SHAPES = [(7, 33), (130, 192), (5, 126), (9, 66)]
-K1_FLOOR_SHAPE = (1, 64)  # one ray: K1a's time per call is then launch and latency
+K1_FLOOR_SHAPE = (1, 64)  # one ray: K1's time per call is then launch and latency
 # K2a: one inclusive scan per hash level on the [points, 8F] table-gradient
 # stream. Per element: read 4 B, write 4 B, one add.
 SCAN_BYTES, SCAN_OPS = 8, 1
@@ -111,7 +113,11 @@ NGP_LEVELS = 16
 # K2b: the osplit probe's 16 levels x 8192*64 points x 8F lanes, and edges.
 SCAN_BATCHED_PATH = (NGP_LEVELS, osplit_bwd.SAMPLES, osplit_bwd.LANES)
 SCAN_BATCHED_SHAPES = [SCAN_BATCHED_PATH, (3, 100, 16), (3, 1025, 16), (1, 1, 8), (2, 7, 128),
-                       (5, 4097, 8)]
+                       (5, 4097, 8),
+                       # many tiles per element; many elements of one tile or
+                       # less; lanes 1 and 128 (the scalar and widest builds)
+                       (2, 1000003, 16), (4096, 100, 16), (20000, 7, 8), (3, 70001, 1),
+                       (2, 9000, 128)]
 # P1 and P2: the gather probe's queries, then partial last tiles; P2 also on
 # a table of 4 chunks, so the tiles wrap around them many times.
 GATHER_QUERIES = gather_attack.QUERIES
@@ -260,8 +266,11 @@ def _check_pair(tau, g):
 
 def _check_scan(x):
     """K2a and torch.cumsum against a float64 scan; errors relative to the
-    running sum of |x| (plus 1, for the all-small start)."""
+    running sum of |x| (plus 1, for the all-small start); and two calls on
+    the same input within the tolerance of each other (the look-back sums
+    its carries in an order that depends on timing)."""
     got = prefix_scan.cumsum_cuda(x)
+    again = prefix_scan.cumsum_cuda(x)
     plain = prefix_scan.cumsum_plain(x)
     torch.cuda.synchronize()
     # float64 reference along the contiguous axis (fast on the card).
@@ -274,9 +283,11 @@ def _check_scan(x):
         "kernel_vs_plain": float(((got.double() - plain.double()).abs() / scale).max()),
         "kernel_vs_f64": float(((got.double() - ref).abs() / scale).max()),
         "plain_vs_f64": float(((plain.double() - ref).abs() / scale).max()),
+        "run_to_run_abs": float((got - again).abs().max()),
+        "run_to_run": float(((got.double() - again.double()).abs() / scale).max()),
     }
     del ref, scale
-    if max(err["kernel_vs_f64"], err["plain_vs_f64"]) > SCAN_RTOL \
+    if max(err["kernel_vs_f64"], err["plain_vs_f64"], err["run_to_run"]) > SCAN_RTOL \
             or err["kernel_vs_plain"] > 2 * SCAN_RTOL:
         raise AssertionError(f"K2a disagrees at {tuple(x.shape)}: {err} (tol {SCAN_RTOL})")
     return err
@@ -284,8 +295,11 @@ def _check_scan(x):
 
 def _check_scan_batched(x):
     """K2b and torch.cumsum(dim=1) against a float64 scan, as `_check_scan`;
-    and no carry leaks across batch elements: row 0 of each is its input."""
+    no carry leaks across batch elements: row 0 of each is its input; and two
+    calls on the same input differ by at most the tolerance (the look-back
+    sums its carries in an order that depends on timing)."""
     got = prefix_scan.cumsum_batched_cuda(x)
+    again = prefix_scan.cumsum_batched_cuda(x)
     plain = prefix_scan.cumsum_batched_plain(x)
     torch.cuda.synchronize()
     xt = x.double().transpose(1, 2).contiguous()  # scan along the contiguous axis
@@ -301,9 +315,11 @@ def _check_scan_batched(x):
         "kernel_vs_plain": float(((got.double() - plain.double()).abs() / scale).max()),
         "kernel_vs_f64": float(((got.double() - ref).abs() / scale).max()),
         "plain_vs_f64": float(((plain.double() - ref).abs() / scale).max()),
+        "run_to_run_abs": float((got - again).abs().max()),
+        "run_to_run": float(((got.double() - again.double()).abs() / scale).max()),
     }
     del ref, scale
-    if max(err["kernel_vs_f64"], err["plain_vs_f64"]) > SCAN_RTOL \
+    if max(err["kernel_vs_f64"], err["plain_vs_f64"], err["run_to_run"]) > SCAN_RTOL \
             or err["kernel_vs_plain"] > 2 * SCAN_RTOL:
         raise AssertionError(f"K2b disagrees at {tuple(x.shape)}: {err} (tol {SCAN_RTOL})")
     return err
@@ -424,9 +440,11 @@ def phase_kernels():
             "bwd_plain_ms": device_ms(lambda: volren_weights.weights_from_tau_bwd_plain(g, w, e)),
             "bwd_bound_ms": bound_ms(shape, BWD_BYTES, BWD_OPS),
         }
-    tau = rand(K1_FLOOR_SHAPE)
+    tau, g = rand(K1_FLOOR_SHAPE), randn(K1_FLOOR_SHAPE)
+    w, e = volren_weights.weights_from_tau_plain(tau)
     timing["floor"] = {"shape": list(K1_FLOOR_SHAPE),
-                       "fwd_ms": device_ms(lambda: volren_weights.weights_fwd_cuda(tau))}
+                       "fwd_ms": device_ms(lambda: volren_weights.weights_fwd_cuda(tau)),
+                       "bwd_ms": device_ms(lambda: volren_weights.weights_bwd_cuda(g, w, e))}
 
     scan_errors, scan_timing = {}, {}
     for shape in SCAN_SHAPES:
@@ -449,8 +467,11 @@ def phase_kernels():
         batched_errors[key] = _check_scan_batched(x)
         if shape == SCAN_BATCHED_PATH:
             plain = device_ms(lambda: prefix_scan.cumsum_batched_plain(x))
+            # A device copy moves the same 8 B per element: the memory rate
+            # this card reaches in practice, beside the bound's 3.35 TB/s.
             batched_timing[key] = {"ms": device_ms(lambda: prefix_scan.cumsum_batched_cuda(x)),
                                    "plain_ms": plain, "library_ms": plain,
+                                   "copy_ms": device_ms(lambda: x.clone()),
                                    "bound_ms": bound_ms(shape, SCAN_BYTES, SCAN_OPS)}
         del x
     gather_errors, gather_timing = _gather_kernels(gen)
@@ -616,7 +637,7 @@ def phase_render(config, model):
 
 KERNEL_KINDS = (  # first match wins; names as the CUDA libraries and torch give them
     ("volren_weights", ("weights_fwd_kernel", "weights_bwd_kernel")),  # K1a, K1b
-    ("prefix_scan", ("prefix_scan_",)),  # K2a
+    ("prefix_scan", ("prefix_scan_",)),  # K2a, K2b
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
     ("sort", ("sort", "radix")),
     ("scan", ("scan", "cumsum")),
@@ -880,13 +901,15 @@ def summary(k, launches):
              bound_ms=per_step("bwd_bound_ms", TRAIN_SHAPES), bound_by="bytes",
              ngp_step={"shape": list(NGP_K1_SHAPE), "ms": timing[ngp]["bwd_ms"],
                        "plain_ms": timing[ngp]["bwd_plain_ms"],
-                       "bound_ms": timing[ngp]["bwd_bound_ms"]}),
-        {"name": "K2a prefix_scan", "route": "cuda", "source": SCAN_SOURCE,
+                       "bound_ms": timing[ngp]["bwd_bound_ms"]},
+             floor_ms=timing["floor"]["bwd_ms"], floor_shape=timing["floor"]["shape"]),
+        {"name": "K2a prefix_scan", "route": "cuda", "source": SCAN_SOURCE, "redesigned": "PR 5",
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:64",
          "launches": launches["ngp_train"]["K2a"], "launches_by_phase": by_phase("K2a"),
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
          "max_abs_err_all_shapes": max(e["kernel_vs_plain_abs"] for e in scan_errors.values()),
          "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"] for e in scan_errors.values()),
+         "run_to_run_max_abs": max(e["run_to_run_abs"] for e in scan_errors.values()),
          "work": f"one NGP train step: {NGP_LEVELS} x [{SCAN_PATH[0]}, {SCAN_PATH[1]}] float32",
          "ms": NGP_LEVELS * scan_timing[path]["ms"],
          "plain_ms": NGP_LEVELS * scan_timing[path]["plain_ms"],
@@ -898,14 +921,16 @@ def summary(k, launches):
     bt = k["batched_timing"][batched]
     kernels.append(
         {"name": "K2b prefix_scan_batched", "route": "cuda", "source": SCAN_SOURCE,
+         "redesigned": "PR 5",
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:117",
          "launches": launches["probe_osplit_bwd"]["K2b"], "launches_by_phase": by_phase("K2b"),
          "max_abs_err": k["batched_errors"][batched]["kernel_vs_plain_abs"],
          "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                for e in k["batched_errors"].values()),
+         "run_to_run_max_abs": max(e["run_to_run_abs"] for e in k["batched_errors"].values()),
          "work": f"one call at {list(SCAN_BATCHED_PATH)} float32",
          "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
-         "bound_by": "bytes", "library_ms": bt["library_ms"]})
+         "bound_by": "bytes", "library_ms": bt["library_ms"], "copy_ms": bt["copy_ms"]})
     for kid, name, line, extra in (("P1", "P1 chunk_take", 111, {}),
                                    ("P2", "P2 onehot_extract", 158, {"redesigned": "PR 4"})):
         # Timing keys (ms, plain_ms, library_ms, bound_ms, bound_by) and shape.

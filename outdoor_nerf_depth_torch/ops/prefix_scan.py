@@ -7,8 +7,11 @@ the scan inside the Instant-NGP hash-table gradient
 [B, N, lanes] along axis 1, the carry reset at each batch element) replaces
 `_scan_kernel_batched` (public op `cumsum_batched`), which the osplit
 backward probe (`probes/osplit_bwd.py`) times against 16 separate scans.
-Both live in `csrc/prefix_scan.cu` (reduce-then-scan in three launches; see
-the note there). `lanes` must divide 128, as in the reference; any N works.
+Both are one kernel, `csrc/prefix_scan.cu`: a single-pass scan with
+decoupled look-back, K2a being its batch of 1 (see the note there). Its
+f32 carries are summed in an order that depends on timing, so two calls on
+one input may differ by a few ulps of the running |x| sum. `lanes` must
+divide 128, as in the reference; any N works.
 
 `cumsum` and `cumsum_batched` use the plain version, `torch.cumsum` in f32,
 only for a tensor on the CPU; for a CUDA tensor they launch the kernel or
@@ -25,8 +28,8 @@ import torch
 from outdoor_nerf_depth_torch.ops import cuda_build
 
 LANE = 128
-TILE_ELEMS = 8192  # elements per tile of the kernel (kTileElems in the source,
-                   # which refuses a scratch sized for another tile)
+TILE_ELEMS = 16384  # elements per tile of the kernel (kTileElems in the source,
+                    # which refuses a scratch sized for another tile)
 SOURCE = "prefix_scan"
 
 LAUNCHES = 0
@@ -55,6 +58,16 @@ def _check_kernel_input(x: torch.Tensor):
         )
 
 
+def tile_plan(batch: int, rows: int, lanes: int):
+    """(tiles per batch element, scratch words) of the kernel's launch.
+
+    A tile holds TILE_ELEMS // lanes rows of one batch element; the scratch
+    is one 64-bit status word per tile and lane, then the ticket counter.
+    """
+    tiles = -(-rows // (TILE_ELEMS // lanes))
+    return tiles, batch * tiles * lanes + 1
+
+
 def cumsum_plain(x: torch.Tensor) -> torch.Tensor:
     """torch.cumsum along axis 0, accumulated in float32, in x's dtype."""
     return torch.cumsum(x.to(torch.float32), dim=0).to(x.dtype)
@@ -64,12 +77,26 @@ def _lib():
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.prefix_scan_f32.argtypes = [ptr, ptr, ptr, i64, i32, i64, ptr]
-        lib.prefix_scan_f32.restype = i32
         lib.prefix_scan_batched_f32.argtypes = [ptr, ptr, ptr, i64, i64, i32, i64, ptr]
         lib.prefix_scan_batched_f32.restype = i32
         lib._argtypes_set = True
     return lib
+
+
+def _launch(x: torch.Tensor, out: torch.Tensor):
+    """The kernel from a non-empty contiguous [B, N, lanes] float32 CUDA
+    tensor into `out`, of the same shape."""
+    batch, rows, lanes = x.shape
+    tiles, words = tile_plan(batch, rows, lanes)
+    # Status words and ticket start at zero on every call (one memset).
+    scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _lib().prefix_scan_batched_f32(
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, rows, lanes, tiles,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(f"prefix_scan launch failed: cudaError {code}")
 
 
 def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
@@ -77,20 +104,10 @@ def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     _check_lanes(x)
     _check_kernel_input(x)
-    rows, lanes = x.shape
     out = torch.empty_like(x)
-    if rows == 0:
-        return out
-    n_tiles = -(-rows // (TILE_ELEMS // lanes))
-    tile_sums = torch.empty((n_tiles, lanes), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _lib().prefix_scan_f32(
-            x.data_ptr(), out.data_ptr(), tile_sums.data_ptr(), rows, lanes, n_tiles,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if code != 0:
-        raise RuntimeError(f"prefix_scan launch failed: cudaError {code}")
-    LAUNCHES += 1
+    if x.numel():
+        _launch(x[None], out[None])
+        LAUNCHES += 1
     return out
 
 
@@ -114,20 +131,10 @@ def cumsum_batched_cuda(x: torch.Tensor) -> torch.Tensor:
     global BATCHED_LAUNCHES
     _check_lanes(x, ndim=3)
     _check_kernel_input(x)
-    batch, rows, lanes = x.shape
     out = torch.empty_like(x)
-    if batch == 0 or rows == 0:
-        return out
-    n_tiles = -(-rows // (TILE_ELEMS // lanes))
-    tile_sums = torch.empty((batch, n_tiles, lanes), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _lib().prefix_scan_batched_f32(
-            x.data_ptr(), out.data_ptr(), tile_sums.data_ptr(), batch, rows, lanes, n_tiles,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if code != 0:
-        raise RuntimeError(f"prefix_scan_batched launch failed: cudaError {code}")
-    BATCHED_LAUNCHES += 1
+    if x.numel():
+        _launch(x, out)
+        BATCHED_LAUNCHES += 1
     return out
 
 

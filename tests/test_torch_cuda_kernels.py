@@ -122,8 +122,12 @@ def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
     torch.testing.assert_close(grad_gpu, enc_cpu.table.grad, atol=1e-3, rtol=1e-4)
 
 
+# The probe's shape; many tiles per element; many elements of one tile or
+# less; lanes 1, 2 (the scalar build), 4 and 128.
 @pytest.mark.parametrize("shape", [(16, 524288, 16), (3, 100, 16), (3, 1025, 16), (1, 1, 8),
-                                   (2, 7, 128), (5, 4097, 8)])
+                                   (2, 7, 128), (5, 4097, 8), (2, 1000003, 16), (4096, 100, 16),
+                                   (20000, 7, 8), (3, 70001, 1), (3, 70001, 2), (2, 50001, 4),
+                                   (2, 9000, 128)])
 def test_batched_prefix_scan_matches_plain(cuda_device, shape):
     x = torch.from_numpy(np.random.RandomState(14).randn(*shape).astype(np.float32)).to(cuda_device)
     prefix_scan.reset_launch_counts()
@@ -134,6 +138,41 @@ def test_batched_prefix_scan_matches_plain(cuda_device, shape):
     assert float(((got - want).abs() / scale).max()) < 1e-5
     # No carry crosses a batch element: each one's row 0 is its input.
     assert torch.equal(got[:, 0], x[:, 0])
+
+
+def test_batched_prefix_scan_on_a_misaligned_view(cuda_device):
+    """A contiguous view 4 bytes off its allocation takes the scalar build."""
+    shape = (3, 5001, 16)
+    x = torch.from_numpy(np.random.RandomState(21).randn(*shape).astype(np.float32))
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    view = flat[1:].view(shape)
+    view.copy_(x.to(cuda_device))
+    assert view.data_ptr() % 16 != 0
+    got = prefix_scan.cumsum_batched(view)
+    scale = torch.cumsum(view.abs().double(), dim=1) + 1.0
+    want = prefix_scan.cumsum_batched_plain(view)
+    assert float(((got - want).abs() / scale).max()) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(16, 524288, 16), (1, 262144, 16)])
+def test_batched_prefix_scan_run_to_run(cuda_device, shape):
+    """The look-back sums carries in an order that depends on timing: two
+    calls on one input may differ, but by no more than the tolerance."""
+    x = torch.from_numpy(np.random.RandomState(22).randn(*shape).astype(np.float32)).to(cuda_device)
+    first = prefix_scan.cumsum_batched(x)
+    second = prefix_scan.cumsum_batched(x)
+    scale = torch.cumsum(x.abs().double(), dim=1) + 1.0
+    assert float(((first - second).abs() / scale).max()) < 1e-5
+
+
+def test_prefix_scan_empty_input_launches_nothing(cuda_device):
+    prefix_scan.reset_launch_counts()
+    for shape in [(0, 16), (0, 1)]:
+        assert prefix_scan.cumsum(torch.empty(shape, device=cuda_device)).shape == shape
+    for shape in [(0, 5, 16), (2, 0, 16)]:
+        assert prefix_scan.cumsum_batched(torch.empty(shape, device=cuda_device)).shape == shape
+    torch.cuda.synchronize()
+    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
 
 
 def _gather_inputs(device, queries, high, rows, dtype, seed):

@@ -53,7 +53,12 @@ def test_cpu_uses_the_plain_version_and_counts_no_launch():
         prefix_scan.cumsum_cuda(torch.ones((10, 16)))
 
 
-@pytest.mark.parametrize("shape", [(3, 100, 16), (3, 1025, 16), (2, 700, 8), (2, 300, 128)])
+# The plain CPU path against the Pallas scan, at small sizes shaped like the
+# card tests' cases (many batch elements of a few rows, rows over several
+# 16384-element tiles, lanes 1); the kernel's own tiling is held against the
+# plain version by the card tests in tests/test_torch_cuda_kernels.py.
+@pytest.mark.parametrize("shape", [(3, 100, 16), (3, 1025, 16), (2, 700, 8), (2, 300, 128),
+                                   (64, 7, 16), (2, 9000, 16), (3, 5000, 1)])
 def test_batched_matches_pallas_interpret(shape):
     rng = np.random.default_rng(sum(shape))
     x = rng.normal(size=shape).astype(np.float32)
@@ -83,3 +88,28 @@ def test_batched_cpu_uses_the_plain_version_and_counts_no_launch():
         prefix_scan.cumsum_batched(torch.ones((2, 10, 16), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         prefix_scan.cumsum_batched_cuda(torch.ones((2, 10, 16)))
+
+
+@pytest.mark.parametrize("op,shape", [(prefix_scan.cumsum, (0, 16)),
+                                      (prefix_scan.cumsum_batched, (0, 5, 16)),
+                                      (prefix_scan.cumsum_batched, (2, 0, 16))])
+def test_empty_input_is_empty_and_counts_no_launch(op, shape):
+    prefix_scan.reset_launch_counts()
+    assert op(torch.ones(shape)).shape == shape
+    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
+
+
+@pytest.mark.parametrize("batch,rows,lanes,want", [
+    # the osplit probe: 16 levels x 524288 points x 16 lanes, 1024-row tiles
+    (16, 524288, 16, (512, 16 * 512 * 16 + 1)),
+    # K2a's path and the probe's per-level scan, run as B = 1
+    (1, 262144, 16, (256, 256 * 16 + 1)),
+    (1, 524288, 16, (512, 512 * 16 + 1)),
+    # one tile per element; lanes 1 (16384-row tiles) and 128 (128-row tiles),
+    # ragged last tiles
+    (4096, 100, 16, (1, 4096 * 16 + 1)),
+    (3, 70001, 1, (5, 3 * 5 + 1)),
+    (2, 9000, 128, (71, 2 * 71 * 128 + 1)),
+])
+def test_tile_plan(batch, rows, lanes, want):
+    assert prefix_scan.tile_plan(batch, rows, lanes) == want
