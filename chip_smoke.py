@@ -10,11 +10,12 @@ non-zero without the final line:
   kernels     each kernel against its plain PyTorch version on the card, at the
               shapes of the paths and at edge cases (K2b at the osplit probe's
               [16, 524288, 16], P1 and P2 at the gather probe's 8.4M queries,
-              which must match bit for bit; K2b also twice on one input,
-              its run-to-run difference); times from CUDA events, with K1a
-              and K1b also for one ray (their launch floor), K2b's single
-              pass also at K2a's shapes with B = 1, and P2 also at chunks of
-              256 and 1024 rows (same bytes, other k-step counts)
+              which must match bit for bit; K2a and K2b also twice on one
+              input, their run-to-run difference, and on bf16 inputs, which
+              they accumulate in f32 and return in bf16); times from CUDA
+              events, with K1a and K1b also for one ray (their launch
+              floor), a device copy of K2b's input, and P2 also at chunks
+              of 256 and 1024 rows (same bytes, other k-step counts)
   train       the port's own train() on the flagship config
               (configs/kitti_mipnerf360.json, full widths, batch 4096, float32)
               on the synthetic scene of 8 images of 94x310, for a few steps;
@@ -39,6 +40,13 @@ non-zero without the final line:
   probe_gather      probes.gather_attack.run() at full size (8.4M queries):
               index_select against table size, sorts against operand count,
               P1 and P2 beside index_select
+  kitti       the KITTI data path: the port's fixture writer (30 views of
+              94x310 in a temporary directory), the mip flagship trained on
+              it at full width from scene_dir=.../dtu_format for 4 steps with
+              a checkpoint every 2, then resumed to 6 steps (step 4 must be
+              restored), configs/kitti_ngp.json trained on it for 20 steps,
+              and both evaluated on the 3 test views (PSNR, SSIM, depth
+              RMSE); K1a, K1b and K2a launches counted on each part
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -67,9 +75,10 @@ from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd  # noqa: E402
+from outdoor_nerf_depth_torch.tools import make_kitti_fixture  # noqa: E402
 from outdoor_nerf_depth_torch.train import step as step_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.config import load_config  # noqa: E402
-from outdoor_nerf_depth_torch.train.loop import set_full_float32, train  # noqa: E402
+from outdoor_nerf_depth_torch.train.loop import evaluate, set_full_float32, train  # noqa: E402
 
 CONFIG = "configs/kitti_mipnerf360.json"
 NGP_CONFIG = "configs/kitti_ngp.json"
@@ -124,6 +133,17 @@ GATHER_QUERIES = gather_attack.QUERIES
 GATHER_EDGE_QUERIES = (1, 2049, 100003)
 ONEHOT_WRAP_ROWS = 4 * chunk_gather.ONEHOT_CHUNK
 ONEHOT_SCALING_CHUNKS = (256, 1024)  # P2 timed beside the probe's 512 as well
+# The scans on bf16 inputs (f32 accumulation, bf16 out): K2a at its path
+# shape, K2b across tiles and batch elements. The kernel's and the plain
+# version's f32 sums may round to neighbouring bf16 values: one bf16 ulp
+# (its eps, relative) of the running |x| sum.
+SCAN_BF16_SHAPES = [SCAN_PATH, (3, 70001, 16)]
+SCAN_BF16_RTOL = float(torch.finfo(torch.bfloat16).eps)
+# The KITTI phase: the fixture of the quality runs, the mip flagship for 4
+# steps with checkpoints at 2 and 4, resumed to 6; NGP for 20 steps.
+KITTI_VIEWS = 30
+KITTI_MIP_STEPS, KITTI_MIP_RESUMED_STEPS, KITTI_CKPT_EVERY = 4, 6, 2
+KITTI_TEST_VIEWS = 3  # views 9, 19, 29
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -325,6 +345,29 @@ def _check_scan_batched(x):
     return err
 
 
+def _check_scan_bf16(x32):
+    """The scan wrappers on a bf16 input: K2a for [N, lanes], K2b for
+    [B, N, lanes]; one launch, a bf16 result within one bf16 ulp of the
+    plain version's, relative to the running |x| sum."""
+    x = x32.to(torch.bfloat16)
+    batched = x.dim() == 3
+    before = (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES)
+    got = prefix_scan.cumsum_batched(x) if batched else prefix_scan.cumsum(x)
+    plain = (prefix_scan.cumsum_batched_plain if batched else prefix_scan.cumsum_plain)(x)
+    torch.cuda.synchronize()
+    launched = (prefix_scan.LAUNCHES - before[0], prefix_scan.BATCHED_LAUNCHES - before[1])
+    if got.dtype != torch.bfloat16 or got.shape != x.shape or launched != ((0, 1) if batched
+                                                                           else (1, 0)):
+        raise AssertionError(f"bf16 scan at {tuple(x.shape)}: {got.dtype}, launches {launched}")
+    scale = torch.cumsum(x.abs().double(), dim=1 if batched else 0) + 1.0
+    err = float(((got.double() - plain.double()).abs() / scale).max())
+    if not torch.isfinite(got).all() or err > SCAN_BF16_RTOL:
+        raise AssertionError(f"bf16 scan disagrees at {tuple(x.shape)}: {err} "
+                             f"(tol {SCAN_BF16_RTOL})")
+    return {"kernel_vs_plain": err, "kernel_vs_plain_abs": float((got - plain).abs().max()),
+            "kernel": "K2b" if batched else "K2a"}
+
+
 def _gather_inputs(gen, queries, high, rows, dtype):
     """int32 indices in [0, high), the first 0 and the last high - 1, and a
     [rows, 16] table of normal values in `dtype`."""
@@ -474,6 +517,8 @@ def phase_kernels():
                                    "copy_ms": device_ms(lambda: x.clone()),
                                    "bound_ms": bound_ms(shape, SCAN_BYTES, SCAN_OPS)}
         del x
+    bf16_errors = {"x".join(str(d) for d in shape): _check_scan_bf16(randn(shape))
+                   for shape in SCAN_BF16_SHAPES}
     gather_errors, gather_timing = _gather_kernels(gen)
     emit({"phase": "kernels",
           "max_abs_err": {k: {"fwd": f, "bwd": b} for k, (f, b) in errors.items()},
@@ -491,6 +536,8 @@ def phase_kernels():
           "scan_batched_errors": batched_errors,
           "scan_batched_timing": batched_timing,
           "scan_batched_library": "torch.cumsum(x, dim=1)",
+          "scan_bf16_errors": bf16_errors,
+          "scan_bf16_tolerance": {"vs_plain_rel_to_running_abs_sum": SCAN_BF16_RTOL},
           "gather_max_abs_err": gather_errors, "gather_tolerance": 0.0,
           "gather_timing": gather_timing,
           "gather_library": {"P1": "torch.index_select(table, 0, idx)",
@@ -498,8 +545,8 @@ def phase_kernels():
                                    "row ids computed beforehand"}})
     return {"errors": errors, "timing": timing, "scan_errors": scan_errors,
             "scan_timing": scan_timing, "batched_errors": batched_errors,
-            "batched_timing": batched_timing, "gather_errors": gather_errors,
-            "gather_timing": gather_timing}
+            "batched_timing": batched_timing, "bf16_errors": bf16_errors,
+            "gather_errors": gather_errors, "gather_timing": gather_timing}
 
 
 def _flagship_config(exp_dir):
@@ -865,6 +912,92 @@ def phase_probe_gather():
     return launches
 
 
+def _kitti_run(config, label, expect, eval_expect):
+    """train() and evaluate() on the fixture, launches counted on each;
+    returns (model, history, log lines, launches, eval metrics)."""
+    lines = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    model, history = train(config, device="cuda", log_fn=lines.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    if launches != expect:
+        raise AssertionError(f"{label}: expected {expect} launches, got {launches}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    mean, per_image = evaluate(config, model, device="cuda", log_fn=lambda line: None)
+    eval_seconds = time.perf_counter() - t0
+    eval_launches = _launches()
+    if eval_launches != eval_expect:
+        raise AssertionError(f"{label} eval: expected {eval_expect} launches, got {eval_launches}")
+    if len(per_image) != KITTI_TEST_VIEWS or not all(
+            math.isfinite(mean[k]) for k in ("psnr", "ssim", "rmse", "abs_rel")) \
+            or mean["n_valid"] <= 0:
+        raise AssertionError(f"{label} eval: {len(per_image)} views, {mean}")
+    return model, history, lines, {
+        "train_seconds": seconds, "train_launches": launches,
+        "eval_seconds": eval_seconds, "eval_launches": eval_launches,
+        "step_ms": [1e3 * config.batch_size / e["rays_per_sec"] for e in history],
+        "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+        **{k: mean[k] for k in ("psnr", "ssim", "rmse", "abs_rel", "n_valid")}}
+
+
+def phase_kitti(root):
+    """The KITTI data path at full width: fixture, mip with a checkpoint
+    resume, NGP, and the test split's metrics; launches per part."""
+    t0 = time.perf_counter()
+    make_kitti_fixture.main(root, KITTI_VIEWS)
+    fixture_seconds = time.perf_counter() - t0
+    scene = os.path.join(root, "dtu_format")
+    chunks = KITTI_TEST_VIEWS * math.ceil(HEIGHT * WIDTH / 16384)  # render chunks of eval
+    out = {"phase": "kitti", "fixture": f"{KITTI_VIEWS} views of {HEIGHT}x{WIDTH}",
+           "fixture_seconds": fixture_seconds}
+    launches = {}
+
+    exp = os.path.join(root, "mip")
+    base = [f"scene_dir={scene}", f"exp_dir={exp}", "print_every=1",
+            f"checkpoint_every={KITTI_CKPT_EVERY}"]
+    config = load_config(CONFIG, base + [f"max_steps={KITTI_MIP_STEPS}"])
+    if config.dataset != "driving" or config.render_chunk_size != 16384:
+        raise AssertionError(f"{CONFIG} no longer trains on the driving layout")
+    steps = KITTI_MIP_STEPS
+    _, history, _, mip = _kitti_run(config, "kitti mip", _only(K1a=3 * steps, K1b=3 * steps),
+                                    _only(K1a=3 * chunks))
+    _check_history(history, steps)
+    saved = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    if saved != ["2", "4", "model_meta.json"]:
+        raise AssertionError(f"kitti mip: checkpoints {saved}")
+    config = load_config(CONFIG, base + [f"max_steps={KITTI_MIP_RESUMED_STEPS}"])
+    steps = KITTI_MIP_RESUMED_STEPS - KITTI_MIP_STEPS
+    _, history, lines, resumed = _kitti_run(config, "kitti mip resumed",
+                                            _only(K1a=3 * steps, K1b=3 * steps),
+                                            _only(K1a=3 * chunks))
+    if json.loads(lines[0]) != {"restored_step": KITTI_MIP_STEPS} or \
+            [e["step"] for e in history] != [KITTI_MIP_STEPS + 1, KITTI_MIP_RESUMED_STEPS]:
+        raise AssertionError(f"kitti mip: no resume from step {KITTI_MIP_STEPS}: {lines[:2]}")
+    out["mip"] = dict(mip, near_m=config.near, far_m=config.far)
+    out["mip_resumed"] = dict(resumed, restored_step=KITTI_MIP_STEPS)
+    launches["kitti_mip"], launches["kitti_mip_resumed"] = (
+        mip["train_launches"], resumed["train_launches"])
+    launches["kitti_mip_eval"] = resumed["eval_launches"]
+    torch.cuda.empty_cache()
+
+    config = load_config(NGP_CONFIG, [f"scene_dir={scene}", f"exp_dir={os.path.join(root, 'ngp')}",
+                                      f"max_steps={NGP_STEPS}", "print_every=1"])
+    model, history, _, ngp = _kitti_run(
+        config, "kitti ngp", _only(K1a=NGP_STEPS, K1b=NGP_STEPS, K2a=NGP_LEVELS * NGP_STEPS),
+        _only(K1a=chunks))
+    _check_history(history, NGP_STEPS)
+    out["ngp"] = dict(ngp, rm_s=history[-1]["rm_s"], vr_s=history[-1]["vr_s"],
+                      occupied_share=_occupied_share(model))
+    launches["kitti_ngp"], launches["kitti_ngp_eval"] = ngp["train_launches"], ngp["eval_launches"]
+    del model
+    torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -876,14 +1009,18 @@ def summary(k, launches):
         return {phase: counts[kernel] for phase, counts in launches.items()}
 
     ngp = f"{NGP_K1_SHAPE[0]}x{NGP_K1_SHAPE[1]}"
+    def on_path(kernel):
+        return sum(launches[p][kernel] for p in ("train", "ngp_train", "kitti_mip",
+                                                 "kitti_mip_resumed", "kitti_ngp"))
+
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
-          "launches_note": "mip train + NGP train runs"}
+          "launches_note": "mip and NGP train runs on the synthetic scene and the KITTI fixture"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     kernels = [
         dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:54",
-             launches=launches["train"]["K1a"] + launches["ngp_train"]["K1a"],
+             launches=on_path("K1a"),
              launches_by_phase=by_phase("K1a"),
              max_abs_err=max(f for f, _ in errors.values()),
              ms=per_step("fwd_ms", TRAIN_SHAPES), plain_ms=per_step("fwd_plain_ms", TRAIN_SHAPES),
@@ -894,7 +1031,7 @@ def summary(k, launches):
              floor_ms=timing["floor"]["fwd_ms"], floor_shape=timing["floor"]["shape"]),
         dict(k1, name="K1b volren_weights_bwd",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:72",
-             launches=launches["train"]["K1b"] + launches["ngp_train"]["K1b"],
+             launches=on_path("K1b"),
              launches_by_phase=by_phase("K1b"),
              max_abs_err=max(b for _, b in errors.values()),
              ms=per_step("bwd_ms", TRAIN_SHAPES), plain_ms=per_step("bwd_plain_ms", TRAIN_SHAPES),
@@ -905,8 +1042,11 @@ def summary(k, launches):
              floor_ms=timing["floor"]["bwd_ms"], floor_shape=timing["floor"]["shape"]),
         {"name": "K2a prefix_scan", "route": "cuda", "source": SCAN_SOURCE, "redesigned": "PR 5",
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:64",
-         "launches": launches["ngp_train"]["K2a"], "launches_by_phase": by_phase("K2a"),
+         "launches": on_path("K2a"), "launches_by_phase": by_phase("K2a"),
+         "launches_note": "NGP train runs on the synthetic scene and the KITTI fixture",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
+         "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
+                                                    for e in k["bf16_errors"].values()),
          "max_abs_err_all_shapes": max(e["kernel_vs_plain_abs"] for e in scan_errors.values()),
          "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"] for e in scan_errors.values()),
          "run_to_run_max_abs": max(e["run_to_run_abs"] for e in scan_errors.values()),
@@ -964,6 +1104,8 @@ def main():
     torch.cuda.empty_cache()
     launches["probe_osplit_bwd"] = phase_probe_osplit_bwd()
     launches["probe_gather"] = phase_probe_gather()
+    with tempfile.TemporaryDirectory() as root:
+        launches.update(phase_kitti(root))
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

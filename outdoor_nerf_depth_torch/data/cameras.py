@@ -1,14 +1,19 @@
-"""Pinhole cameras and pixel->ray casting with mip-NeRF cone radii.
+"""Pinhole cameras, pixel->ray casting with mip-NeRF cone radii, pose normalization.
 
-Port of the part of the reference package's `data/cameras.py` that the
-mip-NeRF train path uses: camera setup in numpy on the host
-(`pinhole_pixtocam`, `pixel_grid`, `view_matrix`) and the cast of pixels to
-rays in torch, on whichever device the tensors live (the train step casts on
-the GPU). Perspective cameras without lens distortion only; fisheye and
-distortion raise NotImplementedError.
+Port of the reference package's `data/cameras.py` for the mip-NeRF and NGP
+train paths: camera setup in numpy on the host (`pinhole_pixtocam`,
+`pixel_grid`, `view_matrix`), pose recentering and PCA normalization in
+numpy (the source of the scene scale that multiplies every depth map), and
+the cast of pixels to rays in torch, on whichever device the tensors live
+(the train step casts on the GPU). `ray_origins_and_viewdirs_np` is the
+reference's numpy cast, kept bit for bit for the scene tracer of fixtures.
+Perspective cameras without lens distortion only; fisheye and distortion
+raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,6 +48,23 @@ def view_matrix(lookdir, up, position) -> np.ndarray:
 
 def _normalize(v):
     return v / np.linalg.norm(v)
+
+
+def ray_origins_and_viewdirs_np(pix_x, pix_y, pixtocams, camtoworlds):
+    """Origins and unit directions of `pixels_to_rays`, in numpy.
+
+    The same operations in the same order and dtypes as the reference's
+    numpy cast (float32 pixels and cameras, the float64 axis flip, the
+    neighbour rays cast alongside), so a fixture traced through it has the
+    reference's pixels bit for bit. Undistorted perspective cameras only.
+    """
+    mk = lambda x, y: np.stack([x + 0.5, y + 0.5, np.ones_like(x)], axis=-1)
+    trio = np.stack([mk(pix_x, pix_y), mk(pix_x + 1, pix_y), mk(pix_x, pix_y + 1)])
+    mat_vec = lambda a, v: (a @ v[..., None])[..., 0]
+    cam_dirs = mat_vec(pixtocams, trio) @ _OPENCV_TO_OPENGL3
+    directions = mat_vec(camtoworlds[..., :3, :3], cam_dirs)[0]
+    origins = np.broadcast_to(camtoworlds[..., :3, -1], directions.shape)
+    return origins, directions / np.linalg.norm(directions, axis=-1, keepdims=True)
 
 
 def pixels_to_rays(pix_x, pix_y, pixtocams, camtoworlds, distortion=None, camtype="perspective"):
@@ -100,3 +122,76 @@ def cast_pixels(pixels: rays_lib.Pixels, cameras, camtype="perspective") -> rays
         exposure_idx=pixels.exposure_idx,
         exposure_values=pixels.exposure_values,
     )
+
+
+# --------------------------------------------------------------------------
+# Pose normalization, in numpy on the host. The scale these produce folds
+# into every depth map.
+# --------------------------------------------------------------------------
+
+
+def pad_pose(p: np.ndarray) -> np.ndarray:
+    bottom = np.broadcast_to([0, 0, 0, 1.0], p[..., :1, :4].shape)
+    return np.concatenate([p[..., :3, :4], bottom], axis=-2)
+
+
+def average_pose(poses: np.ndarray, points: Optional[np.ndarray] = None):
+    """The mean camera frame: center = point-cloud (or camera) centroid;
+    z = normalized mean camera z; x = normalize(mean-y x z); y = z x x.
+    Returns a [3, 4] camera-to-world frame."""
+    use_pts = points is not None and len(points)
+    center = points.mean(0) if use_pts else poses[:, :3, 3].mean(0)
+    z = poses[:, :3, 2].mean(0)
+    z = z / np.linalg.norm(z)
+    y_ = poses[:, :3, 1].mean(0)
+    x = np.cross(y_, z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], axis=1)
+
+
+def recenter_poses(poses: np.ndarray):
+    """Recenter onto the average pose. Returns (new_poses, transform[4,4])."""
+    cam2world = average_pose(poses)
+    transform = np.linalg.inv(pad_pose(cam2world[None])[0])
+    poses = transform @ pad_pose(poses)
+    return poses[..., :3, :4], transform
+
+
+def normalize_poses_pca(poses: np.ndarray):
+    """Align principal axes of camera positions with XYZ, fit to unit cube.
+
+    Returns (poses [N,3,4], transform [4,4]). `transform` maps original world
+    coordinates to normalized coordinates; its isotropic scale
+    (`pose_scale(transform)`) is the factor by which all metric depths must
+    be multiplied to live in the normalized scene. The sign is flipped so
+    the mean camera-up has +z.
+    """
+    t = poses[:, :3, 3]
+    t_mean = t.mean(axis=0)
+    centered = t - t_mean
+
+    eigval, eigvec = np.linalg.eig(centered.T @ centered)
+    order = np.argsort(eigval)[::-1]
+    rot = np.real(eigvec[:, order]).T
+    if np.linalg.det(rot) < 0:
+        rot = np.diag([1.0, 1.0, -1.0]) @ rot
+
+    transform = np.concatenate([rot, rot @ -t_mean[:, None]], -1)
+    new_poses = (pad_pose(transform[None])[0] @ pad_pose(poses))[:, :3, :4]
+    transform = np.concatenate([transform, np.eye(4)[3:]], axis=0)
+
+    if new_poses.mean(axis=0)[2, 1] < 0:
+        flip = np.diag([1.0, -1.0, -1.0])
+        new_poses = flip @ new_poses
+        transform = np.diag([1.0, -1.0, -1.0, 1.0]) @ transform
+
+    scale = 1.0 / np.max(np.abs(new_poses[:, :3, 3]))
+    new_poses[:, :3, 3] *= scale
+    transform = np.diag([scale] * 3 + [1.0]) @ transform
+    return new_poses, transform
+
+
+def pose_scale(transform: np.ndarray) -> float:
+    """Isotropic scale of a normalization transform (metric -> scene units)."""
+    return float(np.sqrt((transform[:3, :3] @ transform[:3, :3].T)[0, 0]))

@@ -1,15 +1,19 @@
-"""Ray datasets and the prefetching batcher.
+"""Ray datasets, the driving-scene loader and the prefetching batcher.
 
-Port of `RayDataset`, `SyntheticDataset` and `PrefetchIterator` from the
+Port of `RayDataset`, `SyntheticDataset`, `DrivingSceneDataset`,
+`PrefetchIterator` and the helpers they use (`load_image`,
+`decode_depth_png`, `split_indices`, `trace_sphere_scene`) from the
 reference package's `data/datasets.py`, for one process. Images and random
 draws stay in numpy with the same RNG streams, so a seed gives the same
 batches as the reference; batches come out as dataclasses of CPU tensors.
 Train batches carry `Pixels` (cast to rays on the GPU inside the step); eval
-batches are cast on the host.
+batches are cast on the host. PNGs are read with the port's own codec
+(`data/png.py`).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Optional
@@ -18,9 +22,65 @@ import numpy as np
 import torch
 
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib
+from outdoor_nerf_depth_torch.data import colmap
+from outdoor_nerf_depth_torch.data import png
 from outdoor_nerf_depth_torch.data import rays as rays_lib
 
 _INVALID_DEPTH = -1.0
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load a PNG as float32 numpy; 16-bit PNGs keep their raw values."""
+    return png.read_png(path).astype(np.float32)
+
+
+def decode_depth_png(
+    raw: np.ndarray,
+    scene_scale: float,
+    invalid_below: float = 2.0,
+    crop_range: float = 0.0,
+    keep_ratio: float = 0.0,
+    seed: int = 0,
+) -> np.ndarray:
+    """KITTI-convention uint16 depth decode with validity filtering.
+
+    raw/256 is metres; raw < `invalid_below` marks no-return pixels. Invalid
+    pixels become negative (so `depth > 0` masks remain valid after any
+    positive rescale). `crop_range` (metres) invalidates far returns;
+    `keep_ratio` keeps a deterministic random subset of valid pixels with
+    total-image density `keep_ratio`. Finally everything valid is multiplied
+    by `scene_scale` (the pose-normalization scale).
+    """
+    depth = raw.astype(np.float32)
+    invalid = depth < invalid_below
+    depth = depth / 256.0
+    if crop_range > 0:
+        invalid |= depth > crop_range
+    if keep_ratio > 0:
+        valid_frac = np.count_nonzero(~invalid) / depth.size
+        if keep_ratio >= valid_frac:
+            raise ValueError(
+                f"keep_ratio {keep_ratio} >= available density {valid_frac:.4f}"
+            )
+        rng = np.random.RandomState(seed)
+        keep = rng.uniform(size=depth.shape) < (keep_ratio / valid_frac)
+        invalid |= ~keep
+    depth = depth * scene_scale
+    depth[invalid] = _INVALID_DEPTH
+    return depth
+
+
+def split_indices(n_images: int, split: str, sample_every: int = 1):
+    """The view split: test = every 10th image starting at 9.
+
+    Train is the complement subsampled by `sample_every` (the sparse-view
+    protocol).
+    """
+    test = list(range(9, n_images, 10))
+    if split == "test":
+        return np.array(test, dtype=np.int32)
+    train = sorted(set(range(n_images)) - set(test))
+    return np.array(train[::max(1, sample_every)], dtype=np.int32)
 
 
 class RayDataset:
@@ -156,4 +216,174 @@ class SyntheticDataset(RayDataset):
             self.depth_sup = np.where(
                 mask, d + rng.normal(0, 0.05, d.shape), _INVALID_DEPTH
             ).astype(np.float32)
+        self._finalize()
+
+
+def trace_sphere_scene(
+    c2w,
+    pixtocam,
+    height: int,
+    width: int,
+    near: float,
+    centers,
+    radii,
+    colors,
+    light,
+    ground_z: float,
+    ground_r: float,
+    ground_center=(0.0, 0.0),
+):
+    """Closed-form ray casting of the analytic sphere+ground-disk scene.
+
+    Returns (rgb [H, W, 3] in [0,1], depth [H, W] metric along the ray,
+    invalid = _INVALID_DEPTH), in float32 and bit for bit the reference's,
+    so the fixture writer (`tools/make_kitti_fixture.py`) stores the same
+    pixels and depth codes.
+    """
+    px, py = cameras_lib.pixel_grid(width, height)
+    cam_idx = np.zeros(px.shape, np.int32)
+    o, d = cameras_lib.ray_origins_and_viewdirs_np(
+        px.astype(np.float32), py.astype(np.float32), pixtocam, c2w[None][cam_idx]
+    )
+    o = np.asarray(o, np.float32)
+    d = np.asarray(d, np.float32)
+
+    t_hit = np.full(px.shape, np.inf, np.float32)
+    rgb = np.zeros(px.shape + (3,), np.float32)
+
+    # Spheres: nearest positive root of |o + t d - c|^2 = r^2.
+    for c, r, col in zip(centers, radii, colors):
+        oc = o - c
+        b = np.sum(oc * d, -1)
+        disc = b**2 - (np.sum(oc**2, -1) - r**2)
+        valid = disc > 0
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        valid &= (t > near) & (t < t_hit)
+        normal = (o + t[..., None] * d - c) / r
+        shade = 0.35 + 0.65 * np.maximum(0.0, np.sum(normal * light, -1))
+        rgb = np.where(valid[..., None], col * shade[..., None], rgb)
+        t_hit = np.where(valid, t, t_hit)
+
+    # Ground disk at z = ground_z, radius ground_r, smooth albedo.
+    tz = (ground_z - o[..., 2]) / np.where(
+        np.abs(d[..., 2]) < 1e-8, 1e-8, d[..., 2]
+    )
+    hit_pt = o + tz[..., None] * d
+    rel = hit_pt[..., :2] - np.asarray(ground_center, np.float32)
+    on_disk = (
+        (tz > near)
+        & (tz < t_hit)
+        & (np.linalg.norm(rel, axis=-1) < ground_r)
+    )
+    albedo = np.stack(
+        [
+            0.45 + 0.35 * rel[..., 0] / ground_r,
+            0.5 + 0.35 * rel[..., 1] / ground_r,
+            np.full(tz.shape, 0.55, np.float32),
+        ],
+        -1,
+    )
+    rgb = np.where(on_disk[..., None], albedo * light[2], rgb)
+    t_hit = np.where(on_disk, tz, t_hit)
+
+    depth = np.where(np.isfinite(t_hit), t_hit, _INVALID_DEPTH)
+    return np.clip(rgb, 0.0, 1.0).astype(np.float32), depth.astype(np.float32)
+
+
+class DrivingSceneDataset(RayDataset):
+    """COLMAP driving scene in the DTU_format layout.
+
+    scene_dir/
+      sparse/0/{cameras,images,points3D}.{bin,txt}
+      images[_<factor>]/*.png
+      depths_gt[_<factor>]/*.png          (uint16, /256 -> metres)
+      depths_<sup_type>[_<factor>]/*.png  (the depth prior under supervision;
+                                           also spelled depths_<factor>_<sup_type>)
+
+    Poses are PCA-normalized; the normalization's scale multiplies every
+    depth and, with `auto_adjust_near_far`, near and far. Distorted and
+    fisheye cameras load, and raise where their rays are cast.
+    """
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        near: float = 0.1,
+        far: float = 150.0,
+        factor: int = 0,
+        depth_sup_type: str = "gt",
+        sample_every: int = 1,
+        depth_crop_range: float = 0.0,
+        depth_keep_ratio: float = 0.0,
+        auto_adjust_near_far: bool = True,
+        load_depth: bool = True,
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        suffix = f"_{factor}" if factor > 0 else ""
+
+        names, poses, pixtocam, distortion, camtype, _ = colmap.load_scene(
+            os.path.join(scene_dir, "sparse/0")
+        )
+        order = np.argsort(names)
+        names = [names[i] for i in order]
+        poses = poses[order][:, :3, :4]
+
+        if factor > 0:
+            pixtocam = pixtocam @ np.diag([factor, factor, 1.0])
+        self.pixtocams = pixtocam.astype(np.float32)
+        self.distortion = distortion
+        self.camtype = camtype
+
+        image_dir = os.path.join(scene_dir, "images" + suffix)
+        colmap_files = sorted(os.listdir(os.path.join(scene_dir, "images")))
+        image_files = sorted(os.listdir(image_dir))
+        to_image = dict(zip(colmap_files, image_files))
+        images = np.stack(
+            [load_image(os.path.join(image_dir, to_image[n])) for n in names]
+        )
+        self.images = (images / 255.0).astype(np.float32)
+
+        poses, transform = cameras_lib.normalize_poses_pca(poses)
+        scale = cameras_lib.pose_scale(transform)
+        self.scene_scale = scale
+        self.world_transform = transform
+        if auto_adjust_near_far:
+            near, far = near * scale, far * scale
+        self.near, self.far = near, far
+
+        depth_gt = depth_sup = None
+        if load_depth:
+            def load_depth_dir(dirname, crop=0.0, keep=0.0):
+                ddir = os.path.join(scene_dir, dirname)
+                dfiles = sorted(os.listdir(ddir))
+                to_depth = dict(zip(colmap_files, dfiles))
+                return np.stack(
+                    [
+                        decode_depth_png(
+                            load_image(os.path.join(ddir, to_depth[n])),
+                            scene_scale=scale,
+                            crop_range=crop,
+                            keep_ratio=keep,
+                        )
+                        for n in names
+                    ]
+                )
+
+            depth_gt = load_depth_dir("depths_gt" + suffix)
+            depth_sup = load_depth_dir(
+                f"depths{suffix}_{depth_sup_type}"
+                if os.path.isdir(os.path.join(scene_dir, f"depths{suffix}_{depth_sup_type}"))
+                else f"depths_{depth_sup_type}" + suffix,
+                crop=depth_crop_range,
+                keep=depth_keep_ratio,
+            )
+
+        idx = split_indices(len(names), split, sample_every)
+        self.images = self.images[idx]
+        self.camtoworlds = poses[idx].astype(np.float32)
+        self.depth_gt = None if depth_gt is None else depth_gt[idx]
+        self.depth_sup = None if depth_sup is None else depth_sup[idx]
         self._finalize()

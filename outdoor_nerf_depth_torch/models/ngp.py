@@ -138,6 +138,8 @@ class HashGridModel(nn.Module):
         self.bg_intensity_range = tuple(bg_intensity_range)
         field_kwargs = dict(field_params or {})
         field_kwargs.setdefault("hash_layout", hash_layout)
+        # An explicit field_params["hash_layout"] wins; checkpoints record it.
+        self.effective_hash_layout = field_kwargs["hash_layout"]
         self.field = HashGridField(scale=scale, compute_dtype=compute_dtype,
                                    generator=generator, **field_kwargs)
         self.e_max = self.field.e_max

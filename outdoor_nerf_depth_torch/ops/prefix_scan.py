@@ -11,7 +11,9 @@ Both are one kernel, `csrc/prefix_scan.cu`: a single-pass scan with
 decoupled look-back, K2a being its batch of 1 (see the note there). Its
 f32 carries are summed in an order that depends on timing, so two calls on
 one input may differ by a few ulps of the running |x| sum. `lanes` must
-divide 128, as in the reference; any N works.
+divide 128, as in the reference; any N and any dtype work: like the
+reference, both accumulate in f32 and return x's dtype (the CUDA wrappers
+cast to f32 before the kernel and back after it).
 
 `cumsum` and `cumsum_batched` use the plain version, `torch.cumsum` in f32,
 only for a tensor on the CPU; for a CUDA tensor they launch the kernel or
@@ -52,10 +54,8 @@ def _check_lanes(x: torch.Tensor, ndim: int = 2):
 
 
 def _check_kernel_input(x: torch.Tensor):
-    if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()):
-        raise ValueError(
-            f"kernel takes a contiguous float32 CUDA tensor, got {x.dtype} on {x.device}"
-        )
+    if not (x.is_cuda and x.is_contiguous()):
+        raise ValueError(f"kernel takes a contiguous CUDA tensor, got one on {x.device}")
 
 
 def tile_plan(batch: int, rows: int, lanes: int):
@@ -100,15 +100,16 @@ def _launch(x: torch.Tensor, out: torch.Tensor):
 
 
 def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
-    """K2a on a contiguous [N, lanes] float32 CUDA tensor."""
+    """K2a on a contiguous [N, lanes] CUDA tensor, accumulated in f32, in x's dtype."""
     global LAUNCHES
     _check_lanes(x)
     _check_kernel_input(x)
-    out = torch.empty_like(x)
+    x32 = x.to(torch.float32)
+    out = torch.empty_like(x32)
     if x.numel():
-        _launch(x[None], out[None])
+        _launch(x32[None], out[None])
         LAUNCHES += 1
-    return out
+    return out.to(x.dtype)
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -127,15 +128,16 @@ def cumsum_batched_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def cumsum_batched_cuda(x: torch.Tensor) -> torch.Tensor:
-    """K2b on a contiguous [B, N, lanes] float32 CUDA tensor."""
+    """K2b on a contiguous [B, N, lanes] CUDA tensor, accumulated in f32, in x's dtype."""
     global BATCHED_LAUNCHES
     _check_lanes(x, ndim=3)
     _check_kernel_input(x)
-    out = torch.empty_like(x)
+    x32 = x.to(torch.float32)
+    out = torch.empty_like(x32)
     if x.numel():
-        _launch(x, out)
+        _launch(x32, out)
         BATCHED_LAUNCHES += 1
-    return out
+    return out.to(x.dtype)
 
 
 def cumsum_batched(x: torch.Tensor) -> torch.Tensor:

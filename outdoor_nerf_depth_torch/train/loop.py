@@ -1,16 +1,22 @@
 """The training loop and the evaluator, on one device.
 
 Port of `train` and `evaluate` from the reference package's `train/loop.py`
-for `dataset=synthetic`: prefetched batches -> train step -> JSON log lines
-with the reference's keys every `print_every` steps, an optional held-out
-view render every `train_render_every` steps, and per-image eval metrics.
-An NGP model's occupancy grid (a buffer of the model) is refreshed before
-step 0 and then every `occupancy_update_every` steps, sweeping every cell
-below `occupancy_warmup_steps`.
+for `dataset=synthetic` and `dataset=driving`: prefetched batches -> train
+step -> JSON log lines with the reference's keys every `print_every` steps,
+an optional held-out view render every `train_render_every` steps,
+checkpoints, and per-image eval metrics. An NGP model's occupancy grid (a
+buffer of the model) is refreshed before step 0 and then every
+`occupancy_update_every` steps, sweeping every cell below
+`occupancy_warmup_steps`.
+
+`train` writes `exp_dir/config.json` and the model-identity sidecar, saves a
+checkpoint every `checkpoint_every` steps and at `max_steps` (the one
+labelled N holds N trained steps), resumes from the latest checkpoint, and
+returns the restored model without training when that checkpoint is at or
+past `max_steps`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
-CUDA they raise instead of falling back. Checkpoints are not ported yet: a
-run that would resume raises, and nothing is written to `exp_dir`.
+CUDA they raise instead of falling back.
 """
 
 from __future__ import annotations
@@ -24,9 +30,10 @@ import torch
 
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib
 from outdoor_nerf_depth_torch.data import rays as rays_lib
+from outdoor_nerf_depth_torch.train import checkpoints as ckpt_lib
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train import step as step_lib
-from outdoor_nerf_depth_torch.train.config import Config
+from outdoor_nerf_depth_torch.train.config import Config, save_config
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,27 +60,49 @@ def build_dataset(config: Config, split: str):
             global_batch_size=config.batch_size,
             cast_on_device=config.cast_rays_in_train_step,
         )
+    if config.dataset == "driving":
+        return datasets_lib.DrivingSceneDataset(
+            config.scene_dir,
+            split,
+            global_batch_size=config.batch_size,
+            near=config.near,
+            far=config.far,
+            factor=config.factor,
+            depth_sup_type=config.depth_sup_type,
+            sample_every=config.sample_every if split == "train" else 1,
+            depth_crop_range=config.depth_crop_range,
+            depth_keep_ratio=config.depth_keep_ratio,
+            auto_adjust_near_far=config.auto_adjust_near_far,
+            load_depth=config.depth_sup_type != "rgbonly",
+            cast_on_device=config.cast_rays_in_train_step,
+        )
     raise NotImplementedError(f"dataset {config.dataset!r} is not ported yet")
 
 
-def _check_no_resume(config: Config):
-    ckpt_dir = os.path.join(config.exp_dir, "checkpoints")
-    if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        raise NotImplementedError(
-            f"{ckpt_dir} holds checkpoints, and resuming is not ported yet"
-        )
-
-
-def train(config: Config, device=None, log_fn=print, dataset=None):
-    """Train from scratch; returns (model, history of logged stats).
+def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=None):
+    """Train, resuming from exp_dir's latest checkpoint; returns (model,
+    history of logged stats).
 
     `dataset` overrides the one `config` names (the same object a caller
-    would get from `build_dataset`, at another size).
+    would get from `build_dataset`, at another size). `max_steps` stops the
+    run early: the LR schedule still spans `config.max_steps`, as in a run
+    cut short.
     """
     device = resolve_device(device)
     set_full_float32()
-    _check_no_resume(config)
-    max_steps = config.max_steps
+    step_lib.check_supported(config)
+    max_steps = max_steps or config.max_steps
+    os.makedirs(config.exp_dir, exist_ok=True)
+    save_config(config, os.path.join(config.exp_dir, "config.json"))
+
+    # Idempotent-run guard: a checkpoint at or past max_steps means this run
+    # finished; hand back the restored model without loading the data.
+    ckpt_dir = os.path.join(config.exp_dir, "checkpoints")
+    latest = ckpt_lib.latest_step(ckpt_dir)
+    if latest is not None and latest >= max_steps:
+        log_fn(json.dumps({"step": latest, "already_complete": True}))
+        model, _ = step_lib.load_checkpoint(config.replace(slim_checkpoint=""))
+        return model.to(device), []
 
     dataset = dataset or build_dataset(config, "train")
     if hasattr(dataset, "scene_scale"):
@@ -87,8 +116,25 @@ def train(config: Config, device=None, log_fn=print, dataset=None):
     )
     # Jitter, background and occupancy-refresh draws, seeded from the config.
     generator = torch.Generator(device=device).manual_seed(config.seed)
+
+    # The checkpoint holds the model (with the NGP occupancy grid), the
+    # optimizer and the generator, so a resumed run continues the same run.
+    meta = step_lib.checkpoint_meta(config, model)
+    ckpt_lib.check_model_meta(ckpt_dir, meta)
+    ckpt_lib.write_model_meta(ckpt_dir, meta)
+    ckpt = ckpt_lib.CheckpointManager(ckpt_dir, keep=config.keep_checkpoints)
+    state, start_step = ckpt.restore()
+    if state is not None:
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        generator.set_state(state["generator"])
+        log_fn(json.dumps({"restored_step": start_step}))
+
     occ_update = step_lib.make_occupancy_update_fn(config, model)
-    occ_every, next_occ = config.occupancy_update_every, 0
+    occ_every = config.occupancy_update_every
+    # A resumed run refreshes at its first step when a refresh fell due
+    # since the last multiple of the cadence.
+    next_occ = (start_step // occ_every) * occ_every if occ_update is not None else None
     batches = datasets_lib.PrefetchIterator(dataset.sample_batch)
 
     test_dataset = None
@@ -97,7 +143,7 @@ def train(config: Config, device=None, log_fn=print, dataset=None):
 
     history = []
     t_last, rays_since = time.perf_counter(), 0
-    for step in range(max_steps):
+    for step in range(start_step, max_steps):
         if occ_update is not None and step >= next_occ:
             # The grid starts empty: without this refresh before step 0 the
             # first step would march no sample at all.
@@ -137,6 +183,10 @@ def train(config: Config, device=None, log_fn=print, dataset=None):
             )
             log_fn(json.dumps({"step": done, "test_view": idx,
                                **{k: round(v, 4) for k, v in m.items()}}))
+        if (config.checkpoint_every > 0 and done % config.checkpoint_every == 0) \
+                or done == max_steps:
+            ckpt.save(done, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                             "step": done, "generator": generator.get_state()})
     return model, history
 
 

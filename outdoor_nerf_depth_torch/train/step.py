@@ -5,13 +5,15 @@ Instant-NGP models: Adam with the log-linear delayed schedule,
 per-top-level-module value then norm gradient clipping, the loss assembly
 (with NGP's point-sampled distortion, opacity entropy and rm_s/vr_s
 marching stats), `nan_to_num` on the gradients, the `grad_norm` stat, the
-NGP occupancy refresh, and chunked `render_image`. One device, eager
+NGP occupancy refresh, chunked `render_image`, and the checkpoint identity
+(`checkpoint_meta`) and restore (`load_checkpoint`). One device, eager
 PyTorch, float32 matmuls (TF32 off, see `train/loop.py:set_full_float32`).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -22,6 +24,7 @@ from outdoor_nerf_depth_torch.data import rays as rays_lib
 from outdoor_nerf_depth_torch.models.ngp import HashGridModel, make_density_fn
 from outdoor_nerf_depth_torch.ops import mathx
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib
+from outdoor_nerf_depth_torch.train import checkpoints as ckpt_lib
 from outdoor_nerf_depth_torch.train import losses as losses_lib
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train.config import Config
@@ -38,7 +41,7 @@ def check_supported(config: Config):
         unported.append(f"compute_dtype={config.compute_dtype}")
     for key, default in (("remat", "none"), ("grad_accum_steps", 1),
                          ("steps_per_dispatch", 1), ("profile_start_step", 0),
-                         ("slim_checkpoint", ""), ("weight_decay_mults", {})):
+                         ("weight_decay_mults", {})):
         if getattr(config, key) != default:
             unported.append(f"{key}={getattr(config, key)}")
     for key in ("autoexpo_loss_mult", "orientation_loss_mult",
@@ -59,6 +62,59 @@ def build_model(config: Config, generator: Optional[torch.Generator] = None):
         params.setdefault("nerf_mlp_params", config.nerf_mlp_params or None)
         params.setdefault("prop_mlp_params", config.prop_mlp_params or None)
     return models_lib.build(config.model, generator=generator, **params)
+
+
+def checkpoint_meta(config: Config, model) -> dict:
+    """Model-identity facts a checkpoint restore must agree on.
+
+    A hash-grid table trained under one hash function loads into a model
+    hashing with another (same [L, T, F] shape) and renders garbage. The
+    train loop stores this dict as a sidecar, and resume and
+    `load_checkpoint` check it.
+    """
+    meta = {"model": config.model}
+    layout = getattr(model, "effective_hash_layout", None)
+    if layout is not None:
+        # Only the corner layout hashes differently; the others pack one
+        # linear hash, so their trained tables are interchangeable.
+        meta["hash_function"] = "corner" if layout == "corner" else "linear"
+    return meta
+
+
+def load_checkpoint(config: Config):
+    """Restore (model, step) on the CPU from config.exp_dir's latest
+    checkpoint, or from `config.slim_checkpoint` when set.
+
+    The model carries its occupancy grid (a buffer). Without a checkpoint
+    the model keeps its initialization and the step is 0.
+    """
+    model = build_model(config, generator=torch.Generator().manual_seed(config.seed))
+    expected = checkpoint_meta(config, model)
+    if config.slim_checkpoint:
+        payload = ckpt_lib.load_slim(config.slim_checkpoint)
+        mismatches = ckpt_lib.meta_mismatches(payload.get("meta", {}), expected)
+        if mismatches:
+            raise ValueError(
+                f"slim checkpoint {config.slim_checkpoint!r} was written "
+                f"by an incompatible model configuration: {mismatches}"
+            )
+        names = {name for name, _ in model.named_parameters()}
+        if set(payload["params"]) != names:
+            raise ValueError(
+                f"slim checkpoint {config.slim_checkpoint!r} holds parameters "
+                f"{sorted(set(payload['params']) ^ names)} that differ from the model's"
+            )
+        state = dict(model.state_dict(), **payload["params"])
+        if "occupancy" in payload:
+            state["occupancy"] = payload["occupancy"]
+        model.load_state_dict(state)
+        return model, int(payload.get("step", 0))
+    ckpt_dir = os.path.join(config.exp_dir, "checkpoints")
+    ckpt_lib.check_model_meta(ckpt_dir, expected)
+    state, step = ckpt_lib.CheckpointManager(ckpt_dir, keep=config.keep_checkpoints).restore()
+    if state is not None:
+        model.load_state_dict(state["model"])
+    return model, step
 
 
 def make_optimizer(config: Config, model: torch.nn.Module):

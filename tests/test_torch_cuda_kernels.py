@@ -165,6 +165,26 @@ def test_batched_prefix_scan_run_to_run(cuda_device, shape):
     assert float(((first - second).abs() / scale).max()) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("batched", [False, True])
+def test_prefix_scan_takes_narrow_floats(cuda_device, dtype, batched):
+    """Like the reference, the scans accumulate a bf16 or f16 input in f32
+    and return its dtype: the kernel's and the plain version's f32 sums may
+    round to neighbouring values, one ulp of the narrow type apart."""
+    shape = (3, 70001, 16) if batched else (262144, 16)
+    x = torch.from_numpy(np.random.RandomState(23).randn(*shape).astype(np.float32))
+    x = x.to(dtype).to(cuda_device)
+    prefix_scan.reset_launch_counts()
+    got = prefix_scan.cumsum_batched(x) if batched else prefix_scan.cumsum(x)
+    assert (prefix_scan.BATCHED_LAUNCHES, prefix_scan.LAUNCHES) == ((1, 0) if batched else (0, 1))
+    want = (prefix_scan.cumsum_batched_plain if batched else prefix_scan.cumsum_plain)(x)
+    assert got.dtype == dtype and got.shape == x.shape
+    axis = 1 if batched else 0
+    scale = torch.cumsum(x.abs().double(), dim=axis) + 1.0
+    ulp = torch.finfo(dtype).eps  # spacing just above 1, relative
+    assert float(((got.double() - want.double()).abs() / scale).max()) <= ulp
+
+
 def test_prefix_scan_empty_input_launches_nothing(cuda_device):
     prefix_scan.reset_launch_counts()
     for shape in [(0, 16), (0, 1)]:

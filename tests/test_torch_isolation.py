@@ -1,6 +1,7 @@
 """The port stands alone: it imports no module of the TPU package and no
-part of its framework stack, and no file of it names either. `chip_smoke.py`
-imports neither (it names the TPU kernels it replaces in its report)."""
+part of its framework stack, and no file of it names either. It imports no
+PIL either (it reads and writes PNGs itself). `chip_smoke.py` imports none
+of them (it names the TPU kernels it replaces in its report)."""
 
 import ast
 import pathlib
@@ -25,7 +26,7 @@ def _port_modules():
 def test_every_module_imports_without_the_reference_stack():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'outdoor_nerf_depth_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'outdoor_nerf_depth_tpu', 'PIL'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for mod in {_port_modules()!r}:\n"

@@ -234,7 +234,7 @@ def test_params_from_flax_takes_the_table_and_rejects_mismatch(flax_vars):
         convert.params_from_flax(flax_vars, t_build("ngp", **bigger))
 
 
-def test_occupancy_refresh_cadence(monkeypatch):
+def test_occupancy_refresh_cadence(monkeypatch, tmp_path):
     """Refreshes run before step 0 and then every occupancy_update_every
     steps, sweeping every cell below occupancy_warmup_steps."""
     calls = []
@@ -252,7 +252,8 @@ def test_occupancy_refresh_cadence(monkeypatch):
     monkeypatch.setattr(t_step, "make_occupancy_update_fn", recording)
     config = t_load_config(CONFIG, SMALL + ["max_steps=5", "occupancy_update_every=2",
                                             "occupancy_warmup_steps=2",
-                                            "occupancy_cells_per_update=64", "print_every=1"])
+                                            "occupancy_cells_per_update=64", "print_every=1",
+                                            f"exp_dir={tmp_path}"])
     model, history = t_loop.train(config, device="cpu", log_fn=lambda line: None)
     assert [w for _, w, _ in calls] == [True, False, False]
     assert calls[0][2] == 0.0  # the first refresh starts from the empty grid

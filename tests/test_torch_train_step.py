@@ -173,8 +173,9 @@ def test_cli_trains_and_evaluates_on_cpu(capsys, tmp_path):
     assert lines[-1]["split"] == "test" and np.isfinite(lines[-1]["mean"]["psnr"])
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         t_loop.train(t_load_config(FLAGSHIP, SMALL + ["compute_dtype=bfloat16"]), device="cpu")
     with pytest.raises(NotImplementedError):
-        t_loop.train(t_load_config(FLAGSHIP, ["dataset=driving"]), device="cpu")
+        t_loop.train(t_load_config(FLAGSHIP, ["dataset=nerfpp", f"exp_dir={tmp_path}"]),
+                     device="cpu")
