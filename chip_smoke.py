@@ -47,6 +47,15 @@ non-zero without the final line:
               restored), configs/kitti_ngp.json trained on it for 20 steps,
               and both evaluated on the 3 test views (PSNR, SSIM, depth
               RMSE); K1a, K1b and K2a launches counted on each part
+  nerfpp      NeRF++ on the same fixture's NeRF++ layout (<fixture>/nerfpp):
+              configs/kitti_nerfpp.json at full width (cascade 64 + 128,
+              fg and bg PointFieldMLP 8x256, batch 1024, float32, clip 1.0)
+              trained for 20 steps (median step ms after the first, peak
+              memory), one 94x310 test view rendered in chunks of the
+              config's 16384 rays (peak memory) and held against the same
+              model on the CPU for a few rays, the 3 test views evaluated,
+              then two more steps under torch.profiler; NeRF++ composites
+              with cumprod, so no kernel of the port may launch on any part
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -82,6 +91,8 @@ from outdoor_nerf_depth_torch.train.loop import evaluate, set_full_float32, trai
 
 CONFIG = "configs/kitti_mipnerf360.json"
 NGP_CONFIG = "configs/kitti_ngp.json"
+NERFPP_CONFIG = "configs/kitti_nerfpp.json"
+NERFPP_STEPS = 20
 STEPS = 6
 NGP_STEPS = 20  # occupancy refreshes before steps 0 and 16
 N_IMAGES, HEIGHT, WIDTH = 8, 94, 310  # the synthetic scene of the mip_4096 shape
@@ -191,6 +202,18 @@ def mlp_forward_flops(model, n_rays):
     levels = [(model.prop_mlp, model.num_prop_samples)] * (model.num_levels - 1)
     levels.append((model.nerf_mlp, model.num_nerf_samples))
     return sum(linear_flops([mlp], n_rays * samples) for mlp, samples in levels)
+
+
+def nerfpp_forward_flops(model, n_rays):
+    """Multiply-add FLOPs of the fg and bg fields of every NeRF++ level on
+    that level's samples (level i runs on the sum of the first i + 1
+    cascade counts)."""
+    total, samples = 0, 0
+    for level, n in enumerate(model.cascade_samples):
+        samples += n
+        fields = getattr(model, f"level{level}")
+        total += linear_flops([fields.fg_field, fields.bg_field], n_rays * samples)
+    return total
 
 
 def ngp_points(model, n_rays):
@@ -626,10 +649,11 @@ def phase_train(exp_dir):
     return config, model, launches
 
 
-def _render_check(config, model, flops_fn, expect, label, rtol):
+def _render_check(config, model, flops_fn, expect, label, rtol, batch=None):
     """Render one test view three times (launches counted on the first),
-    then hold 128 of its rays against the same model on the CPU."""
-    batch = _scene(config, "test", 0).image_batch(0)
+    then hold 128 of its rays against the same model on the CPU. The view
+    is the synthetic scene's first test view unless `batch` is given."""
+    batch = batch or _scene(config, "test", 0).image_batch(0)
     n_rays = HEIGHT * WIDTH
     chunks = math.ceil(n_rays / config.render_chunk_size)
     times = []
@@ -741,9 +765,10 @@ def _profile(label, work, steps, step_tflop=None):
                        "calls_per_step": e.count / steps} for e in top_ops]})
 
 
-def phase_profile(config, model, step_tflop, label="profile", steps=2):
-    """Two train steps (after one unprofiled) under the profiler."""
-    dataset = _scene(config, "train", 1)
+def phase_profile(config, model, step_tflop, label="profile", steps=2, dataset=None):
+    """Two train steps (after one unprofiled) under the profiler, on the
+    synthetic scene unless `dataset` is given."""
+    dataset = dataset or _scene(config, "train", 1)
     optimizer, lr_fn = step_lib.make_optimizer(config, model)
     train_step = step_lib.make_train_step(config, model, optimizer, lr_fn,
                                           cameras=dataset.cameras_on("cuda"))
@@ -998,6 +1023,92 @@ def phase_kitti(root):
     return launches
 
 
+def phase_nerfpp(root):
+    """NeRF++ at full width on the fixture written by phase `kitti`: train,
+    render, evaluate, profile; no kernel of the port on any part."""
+    scene = os.path.join(root, "nerfpp")
+    config = load_config(NERFPP_CONFIG, [f"scene_dir={scene}", f"max_steps={NERFPP_STEPS}",
+                                         f"exp_dir={os.path.join(root, 'nerfpp_exp')}",
+                                         "print_every=1"])
+    mp = config.model_params
+    expected = (config.dataset, tuple(mp["cascade_samples"]), mp["net_depth"], mp["net_width"],
+                mp["pos_degrees"], mp["view_degrees"], config.batch_size, config.compute_dtype,
+                config.grad_max_norm, config.depth_loss_type, config.lambda_depth,
+                config.depth_loss_reduce, config.depth_fg_far_mask, config.render_chunk_size)
+    if expected != ("nerfpp", (64, 128), 8, 256, 10, 4, 1024, "float32", 1.0, "mse", 1.0,
+                    "mean_valid", True, 16384):
+        raise AssertionError(f"{NERFPP_CONFIG} is no longer the full-width NeRF++ shape: "
+                             f"{expected}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    model, history = train(config, device="cuda", log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"nerfpp": _launches()}
+    if launches["nerfpp"] != _only():
+        raise AssertionError(f"a kernel launched on the NeRF++ path: {launches['nerfpp']}")
+    _check_history(history, NERFPP_STEPS)
+    step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
+    steady = statistics.median(step_ms[1:])
+    step_tflop = 3 * nerfpp_forward_flops(model, config.batch_size) / 1e12
+    points = config.batch_size * 2 * sum(
+        sum(mp["cascade_samples"][:i + 1]) for i in range(len(mp["cascade_samples"])))
+
+    test = datasets_lib.NerfppSceneDataset(scene, "test", config.batch_size)
+    if (test.height, test.width) != (HEIGHT, WIDTH):
+        raise AssertionError(f"fixture views are {test.height}x{test.width}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Float32 8x256 matmuls sum in another order on the card, and the
+    # inverse-CDF resampling passes that on: 1e-3 on rgb in [0, 1],
+    # relative 1e-3 on depths.
+    render = _render_check(config, model, nerfpp_forward_flops, lambda chunks: _only(),
+                           "nerfpp_render", 1e-3, batch=test.image_batch(0))
+    render["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    emit(render)
+    launches["nerfpp_render"] = render["launches"]
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    mean, per_image = evaluate(config, model, device="cuda", log_fn=lambda line: None)
+    eval_seconds = time.perf_counter() - t0
+    launches["nerfpp_eval"] = _launches()
+    if launches["nerfpp_eval"] != _only():
+        raise AssertionError(f"a kernel launched in the NeRF++ eval: {launches['nerfpp_eval']}")
+    if len(per_image) != KITTI_TEST_VIEWS or not all(
+            math.isfinite(mean[k]) for k in ("psnr", "ssim", "rmse", "abs_rel")) \
+            or mean["n_valid"] <= 0:
+        raise AssertionError(f"nerfpp eval: {len(per_image)} views, {mean}")
+    emit({"phase": "nerfpp", "config": NERFPP_CONFIG, "steps": NERFPP_STEPS,
+          "batch": config.batch_size, "field_points_per_step": points,
+          "scene": f"KITTI fixture, NeRF++ layout, {test.n_images} test views of "
+                   f"{HEIGHT}x{WIDTH}", "seconds": seconds,
+          "step_ms": step_ms, "median_step_ms_after_first": steady,
+          "rays_per_sec": 1e3 * config.batch_size / steady,
+          "mlp_tflop_per_step": step_tflop, "mlp_tflop_per_s": step_tflop / (steady / 1e3),
+          "max_memory_allocated_bytes": peak,
+          "launches": launches["nerfpp"], "k1_launches": launches["nerfpp"]["K1a"]
+          + launches["nerfpp"]["K1b"] + launches["nerfpp_render"]["K1a"]
+          + launches["nerfpp_eval"]["K1a"],
+          "k1_note": "0 by design: NeRF++ composites with cumprod(1 - alpha + 1e-6), "
+                     "not K1's exp-of-cumsum",
+          "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+          "grad_norm": history[-1]["grad_norm"],
+          "render_chunk": config.render_chunk_size,
+          "eval": {"views": len(per_image), "seconds": eval_seconds,
+                   **{k: mean[k] for k in ("psnr", "ssim", "rmse", "abs_rel", "n_valid")}}})
+
+    train_set = datasets_lib.NerfppSceneDataset(scene, "train", config.batch_size)
+    phase_profile(config.replace(depth_scale=float(train_set.scene_scale)), model, step_tflop,
+                  label="nerfpp_profile", dataset=train_set)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -1011,7 +1122,7 @@ def summary(k, launches):
     ngp = f"{NGP_K1_SHAPE[0]}x{NGP_K1_SHAPE[1]}"
     def on_path(kernel):
         return sum(launches[p][kernel] for p in ("train", "ngp_train", "kitti_mip",
-                                                 "kitti_mip_resumed", "kitti_ngp"))
+                                                 "kitti_mip_resumed", "kitti_ngp", "nerfpp"))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
@@ -1106,6 +1217,7 @@ def main():
     launches["probe_gather"] = phase_probe_gather()
     with tempfile.TemporaryDirectory() as root:
         launches.update(phase_kitti(root))
+        launches.update(phase_nerfpp(root))
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,12 +3,16 @@
 The reference package's models keep their weights as nested dicts
 `{"params": {"nerf_mlp": {"trunk0": {"kernel", "bias"}, ...}, ...}}`. Here
 each Flax `Dense` is an `nn.Linear` of the same name; a Dense kernel is
-[in, out] and a Linear weight is [out, in]. The hash-grid table
-(`field/encoder/table`, [L, T, F]) is copied as it is.
+[in, out] and a Linear weight is [out, in]. A module that lists
+`flax_dense_names` (NeRF++'s `PointFieldMLP`) takes Flax's auto-named
+`Dense_{i}` as its i-th named layer. A Flax `Embed` (`embedding`, NeRF++'s
+autoexposure) is an `nn.Embedding` weight and, like the hash-grid table
+(`field/encoder/table`, [L, T, F]), is copied as it is.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -23,6 +27,22 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (key,), val
 
 
+def _module_name(model: torch.nn.Module, path) -> str:
+    """The torch name of the Flax module at `path`, auto-named Dense layers
+    resolved through their parent's `flax_dense_names`."""
+    names, module = [], model
+    for key in path:
+        auto = re.fullmatch(r"Dense_(\d+)", key)
+        dense_names = getattr(module, "flax_dense_names", None)
+        if auto and dense_names is not None:
+            if int(auto.group(1)) >= len(dense_names):
+                raise ValueError(f"Flax module {'/'.join(path)} has no counterpart")
+            key = dense_names[int(auto.group(1))]
+        names.append(key)
+        module = getattr(module, key, None)
+    return ".".join(names)
+
+
 def params_from_flax(tree: Mapping, model: torch.nn.Module) -> torch.nn.Module:
     """Copy `tree` (numpy leaves, with or without the "params" level) into `model`.
 
@@ -34,11 +54,14 @@ def params_from_flax(tree: Mapping, model: torch.nn.Module) -> torch.nn.Module:
     state = {}
     for path, val in _flatten(tree):
         *module, leaf = path
+        module = _module_name(model, module)
         val = np.array(val, dtype=np.float32)  # a writable copy
         if leaf == "kernel":
-            name, val = ".".join(module) + ".weight", val.T
+            name, val = module + ".weight", val.T
+        elif leaf == "embedding":
+            name = module + ".weight"
         elif leaf in ("bias", "table"):
-            name = ".".join(module + [leaf])
+            name = f"{module}.{leaf}"
         else:
             raise ValueError(f"unexpected Flax leaf {'/'.join(path)}")
         if name not in wanted:

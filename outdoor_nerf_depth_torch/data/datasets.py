@@ -1,7 +1,7 @@
 """Ray datasets, the driving-scene loader and the prefetching batcher.
 
 Port of `RayDataset`, `SyntheticDataset`, `DrivingSceneDataset`,
-`PrefetchIterator` and the helpers they use (`load_image`,
+`NerfppSceneDataset`, `PrefetchIterator` and the helpers they use (`load_image`,
 `decode_depth_png`, `split_indices`, `trace_sphere_scene`) from the
 reference package's `data/datasets.py`, for one process. Images and random
 draws stay in numpy with the same RNG streams, so a seed gives the same
@@ -88,7 +88,8 @@ class RayDataset:
 
     Subclasses populate (before calling `_finalize`): images [N,H,W,3] in
     [0,1]; camtoworlds [N,3,4]; pixtocams [3,3] or [N,3,3]; near/far
-    floats; depth_gt / depth_sup [N,H,W] (invalid <= 0) or None.
+    floats; depth_gt / depth_sup [N,H,W] (invalid <= 0) or None; min_depth
+    [N,H,W] or None (NeRF++'s per-ray near bound).
     """
 
     images: np.ndarray
@@ -100,6 +101,7 @@ class RayDataset:
     far: float = 100.0
     depth_gt: Optional[np.ndarray] = None
     depth_sup: Optional[np.ndarray] = None
+    min_depth: Optional[np.ndarray] = None
     scene_scale: float = 1.0
 
     def __init__(self, split: str, global_batch_size: int, cast_on_device: bool = True):
@@ -127,12 +129,17 @@ class RayDataset:
 
     def _gather(self, cam_idx, py, px, cast: bool) -> rays_lib.Batch:
         t = torch.from_numpy
+        # NeRF++'s min_depth maps give each ray its own near bound.
+        if self.min_depth is not None:
+            near = self.min_depth[cam_idx, py, px][..., None].astype(np.float32)
+        else:
+            near = np.full(px.shape + (1,), self.near, np.float32)
         pixels = rays_lib.Pixels(
             pix_x=t(px.astype(np.float32)),
             pix_y=t(py.astype(np.float32)),
             cam_idx=t(cam_idx[..., None].astype(np.int32)),
             lossmult=t(np.ones(px.shape + (1,), np.float32)),
-            near=t(np.full(px.shape + (1,), self.near, np.float32)),
+            near=t(near),
             far=t(np.full(px.shape + (1,), self.far, np.float32)),
         )
         rays = cameras_lib.cast_pixels(pixels, self.cameras_on("cpu"), self.camtype) if cast else pixels
@@ -386,4 +393,75 @@ class DrivingSceneDataset(RayDataset):
         self.camtoworlds = poses[idx].astype(np.float32)
         self.depth_gt = None if depth_gt is None else depth_gt[idx]
         self.depth_sup = None if depth_sup is None else depth_sup[idx]
+        self._finalize()
+
+
+class NerfppSceneDataset(RayDataset):
+    """The NeRF++ per-image txt layout (cameras normalized into the unit sphere).
+
+    scene_dir/<split>/{intrinsics,pose}/*.txt, rgb/, depth/,
+    depth_<sup_type>/, min_depth/, max_depth.txt, and scene_dir/scale.
+    Depths are raw / 256 * scale, min-depth PNGs raw / 255 * max_depth.
+    Poses come in OpenCV axes and are flipped to OpenGL for the caster.
+    `skip` keeps every skip-th view.
+    """
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        skip: int = 1,
+        depth_sup_type: str = "gt",
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        split_dir = os.path.join(scene_dir, split)
+
+        def files(sub):
+            return sorted(os.listdir(os.path.join(split_dir, sub)))[::skip]
+
+        def read_mats(sub):
+            return [np.loadtxt(os.path.join(split_dir, sub, f)).reshape(4, 4) for f in files(sub)]
+
+        intrinsics, poses = read_mats("intrinsics"), read_mats("pose")
+        self.images = np.stack(
+            [load_image(os.path.join(split_dir, "rgb", f)) / 255.0 for f in files("rgb")]
+        ).astype(np.float32)
+
+        # OpenCV c2w -> OpenGL c2w (flip the y and z columns).
+        flip = np.diag([1.0, -1.0, -1.0])
+        self.camtoworlds = np.stack(
+            [np.concatenate([p[:3, :3] @ flip, p[:3, 3:4]], -1) for p in poses]
+        ).astype(np.float32)
+        self.pixtocams = np.stack([np.linalg.inv(k[:3, :3]) for k in intrinsics]).astype(np.float32)
+
+        scale_file = os.path.join(scene_dir, "scale")
+        if os.path.exists(scale_file):
+            with open(scale_file) as f:
+                self.scene_scale = float(f.read().split()[0])
+
+        def load_depths(sub):
+            if not os.path.isdir(os.path.join(split_dir, sub)):
+                return None
+            out = np.stack([load_image(os.path.join(split_dir, sub, f)) for f in files(sub)])
+            out = out / 256.0 * self.scene_scale
+            out[out <= 0] = _INVALID_DEPTH
+            return out.astype(np.float32)
+
+        self.depth_gt = load_depths("depth")
+        self.depth_sup = load_depths(
+            "depth" if depth_sup_type == "gt" else f"depth_{depth_sup_type}")
+
+        max_depth = 100.0  # without max_depth.txt
+        max_depth_file = os.path.join(split_dir, "max_depth.txt")
+        if os.path.exists(max_depth_file):
+            with open(max_depth_file) as f:
+                max_depth = float(f.read().strip())
+        if os.path.isdir(os.path.join(split_dir, "min_depth")):
+            self.min_depth = np.stack(
+                [load_image(os.path.join(split_dir, "min_depth", f)) / 255.0 * max_depth + 1e-4
+                 for f in files("min_depth")]
+            ).astype(np.float32)
+        self.near, self.far = 1e-4, 2.0  # unit-sphere scene: fg far ~ sphere exit
         self._finalize()

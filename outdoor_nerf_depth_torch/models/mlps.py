@@ -1,10 +1,14 @@
-"""The cone-Gaussian IPE field MLP of mip-NeRF 360.
+"""The field MLPs: mip-NeRF 360's cone-Gaussian IPE MLP and NeRF++'s point MLP.
 
-Port of `ConeFieldMLP` from the reference package's `models/mlps.py`, with
-the options the flagship configuration uses. Layer names map one to one onto
-the Flax module's: `trunk{i}`, `density_head`, `bottleneck`, `view{i}` and
-`rgb_head`, each an `nn.Linear` whose weight is the transpose of the Flax
-`Dense` kernel. Weights start He-uniform, biases zero.
+Port of `ConeFieldMLP` (with the options the flagship configuration uses)
+and `PointFieldMLP` from the reference package's `models/mlps.py`. Each
+layer is an `nn.Linear` whose weight is the transpose of the Flax `Dense`
+kernel. `ConeFieldMLP`'s layer names map one to one onto the Flax
+module's: `trunk{i}`, `density_head`, `bottleneck`, `view{i}` and
+`rgb_head`; its weights start He-uniform. `PointFieldMLP`'s Flax layers
+are auto-named `Dense_{i}` in the order they are made, which
+`flax_dense_names` lists; its weights start Xavier-uniform. Biases start
+at zero.
 
 Not ported in this slice (they raise NotImplementedError): the Ref-NeRF
 options (density or predicted normals, integrated directional encoding,
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from outdoor_nerf_depth_torch.ops import spaces
+from outdoor_nerf_depth_torch.ops import mathx, spaces
 
 _REF_NERF_OPTIONS = (
     "compute_density_normals",
@@ -32,10 +36,15 @@ _REF_NERF_OPTIONS = (
 )
 
 
-def _dense(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
+def _dense(fan_in: int, fan_out: int, generator: Optional[torch.Generator],
+           init: str = "he") -> nn.Linear:
     layer = nn.Linear(fan_in, fan_out)
-    # He-uniform (Flax `he_uniform`): U(-sqrt(6 / fan_in), sqrt(6 / fan_in)).
-    nn.init.kaiming_uniform_(layer.weight, nonlinearity="relu", generator=generator)
+    if init == "he":
+        # He-uniform (Flax `he_uniform`): U(-sqrt(6 / fan_in), sqrt(6 / fan_in)).
+        nn.init.kaiming_uniform_(layer.weight, nonlinearity="relu", generator=generator)
+    else:
+        # Xavier-uniform: U(-sqrt(6 / (fan_in + fan_out)), ...).
+        nn.init.xavier_uniform_(layer.weight, generator=generator)
     nn.init.zeros_(layer.bias)
     return layer
 
@@ -169,3 +178,60 @@ class ConeFieldMLP(nn.Module):
         rgb = torch.sigmoid(self.rgb_premultiplier * self.rgb_head(y) + self.rgb_bias)
         out["rgb"] = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
         return out
+
+
+class PointFieldMLP(nn.Module):
+    """Positional-encoding point MLP with |.| density (NeRF++'s fg/bg field).
+
+    `input_dim` is 3 for the foreground and 4 for the inverted-sphere
+    background (x', y', z', 1/r). The raw encoding joins the trunk after
+    each layer in `skips` (but the last).
+    """
+
+    def __init__(
+        self,
+        input_dim: int = 3,
+        net_depth: int = 8,
+        net_width: int = 256,
+        skips=(4,),
+        pos_degrees: int = 10,
+        view_degrees: int = 4,
+        compute_dtype: str = "float32",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if compute_dtype not in ("float32", torch.float32):
+            raise NotImplementedError(
+                f"PointFieldMLP: compute_dtype={compute_dtype} is not ported yet")
+        self.pos_degrees, self.view_degrees = pos_degrees, view_degrees
+        self.skips = tuple(i for i in skips if i != net_depth - 1)
+        enc_dim = input_dim * (1 + 2 * pos_degrees)
+        dir_dim = 3 * (1 + 2 * view_degrees)
+        # (name, fan_in, fan_out) in the order the Flax module makes its Dense layers.
+        layers, x_dim = [], enc_dim
+        for i in range(net_depth):
+            layers.append((f"trunk{i}", x_dim, net_width))
+            x_dim = net_width + (enc_dim if i in self.skips else 0)
+        layers += [("sigma_head", x_dim, 1), ("base", x_dim, net_width),
+                   ("view", net_width + dir_dim, net_width // 2), ("rgb_head", net_width // 2, 3)]
+        for name, fan_in, fan_out in layers:
+            self.add_module(name, _dense(fan_in, fan_out, generator, init="xavier"))
+        self.flax_dense_names = [name for name, _, _ in layers]
+        self.trunk_names = self.flax_dense_names[:net_depth]
+
+    def forward(self, pts: torch.Tensor, viewdirs: torch.Tensor):
+        """pts [..., S, input_dim], viewdirs [..., 3] (per ray) or [..., S, 3]
+        -> (sigma [..., S], rgb [..., S, 3])."""
+        x = spaces.pos_enc(pts, 0, self.pos_degrees)
+        skip_in = x
+        for i, name in enumerate(self.trunk_names):
+            x = F.relu(getattr(self, name)(x))
+            if i in self.skips:
+                x = torch.cat([x, skip_in], dim=-1)
+        sigma = mathx.abs_(self.sigma_head(x)[..., 0])
+        base = self.base(x)
+        dir_enc = spaces.pos_enc(viewdirs, 0, self.view_degrees)
+        if dir_enc.dim() == base.dim() - 1:  # per-ray directions: broadcast over S
+            dir_enc = dir_enc[..., None, :].expand(base.shape[:-1] + dir_enc.shape[-1:])
+        y = F.relu(self.view(torch.cat([base, dir_enc], dim=-1)))
+        return sigma, torch.sigmoid(self.rgb_head(y))

@@ -46,6 +46,16 @@ class _SafeExp(torch.autograd.Function):
         return g * y
 
 
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the reference's gradient at 0, +1 (`torch.abs` gives 0 there).
+
+    It matters where a value starts at exactly 0: NeRF++'s autoexposure
+    regularizer at its identity initialization, a density head on dead
+    features.
+    """
+    return torch.where(x >= 0, x, -x)
+
+
 def safe_exp(x: torch.Tensor) -> torch.Tensor:
     """exp() clamped to stay finite in f32."""
     return _SafeExp.apply(x)

@@ -1,14 +1,16 @@
 """Quality runs on the KITTI fixture: train each backend, evaluate the test split.
 
     python -m outdoor_nerf_depth_torch.tools.full_budget_run \\
-        [backends=mip,ngp] [steps_scale=1.0] [fixture=build/kitti_fixture] \\
+        [backends=mip,ngp,nerfpp] [steps_scale=1.0] [fixture=build/kitti_fixture] \\
         [exp_root=build/full_budget] [out=build/quality_full.json] \\
         [stop_at=N] [--device cpu] [key=value ...]
 
 Trains mip-NeRF 360 (`configs/kitti_mipnerf360.json`, 75k steps at full
 budget) and Instant-NGP (`configs/kitti_ngp.json`, 30k steps) on the
-KITTI-layout fixture, `steps_scale` times those budgets, then evaluates the
-test split (views 9, 19, 29 of 30). `stop_at` ends each run after that
+KITTI-layout fixture's COLMAP scene, and NeRF++ (`configs/kitti_nerfpp.json`,
+100k steps) on its NeRF++ layout, `steps_scale` times those budgets, then
+evaluates the test split (views 9, 19, 29 of 30). `backends` defaults to
+mip and ngp. `stop_at` ends each run after that
 many steps of its schedule, as a run cut short would end. The fixture is
 written with the port's own tool (`tools/make_kitti_fixture.py`, 30 views
 of 94x310) when `fixture` holds none. Any other `key=value` is forwarded to
@@ -21,7 +23,7 @@ backend the results go to `out`, one entry per run with the test split's
 mean metrics, the train PSNR curve, train and eval seconds, the step the
 segment resumed from, the steps it trained and its train rays/s; the
 `device` field names the card and its power limit. Runs on CUDA unless
-`--device cpu` is given. The NeRF++ backend waits for its model.
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ RUNS = {
                 scene_sub="dtu_format", steps=75000),
     "ngp": dict(config=os.path.join(REPO, "configs", "kitti_ngp.json"),
                 scene_sub="dtu_format", steps=30000),
+    "nerfpp": dict(config=os.path.join(REPO, "configs", "kitti_nerfpp.json"),
+                   scene_sub="nerfpp", steps=100000),
 }
 
 
@@ -66,8 +70,6 @@ def device_label(device: torch.device) -> str:
 
 
 def check_backend(name: str):
-    if name == "nerfpp":
-        raise NotImplementedError("the NeRF++ backend is not ported yet")
     if name not in RUNS:
         raise ValueError(f"unknown backend {name!r}; expected one of {sorted(RUNS)}")
 

@@ -1,7 +1,7 @@
 """The training loop and the evaluator, on one device.
 
 Port of `train` and `evaluate` from the reference package's `train/loop.py`
-for `dataset=synthetic` and `dataset=driving`: prefetched batches -> train
+for `dataset=synthetic`, `dataset=driving` and `dataset=nerfpp`: prefetched batches -> train
 step -> JSON log lines with the reference's keys every `print_every` steps,
 an optional held-out view render every `train_render_every` steps,
 checkpoints, and per-image eval metrics. An NGP model's occupancy grid (a
@@ -74,6 +74,15 @@ def build_dataset(config: Config, split: str):
             depth_keep_ratio=config.depth_keep_ratio,
             auto_adjust_near_far=config.auto_adjust_near_far,
             load_depth=config.depth_sup_type != "rgbonly",
+            cast_on_device=config.cast_rays_in_train_step,
+        )
+    if config.dataset == "nerfpp":
+        return datasets_lib.NerfppSceneDataset(
+            config.scene_dir,
+            split,
+            global_batch_size=config.batch_size,
+            skip=config.sample_every if split == "train" else 1,
+            depth_sup_type=config.depth_sup_type,
             cast_on_device=config.cast_rays_in_train_step,
         )
     raise NotImplementedError(f"dataset {config.dataset!r} is not ported yet")

@@ -3,8 +3,8 @@
 Port of the mip-NeRF path of the reference package's `train/losses.py`:
 rgb (mse, charb), expected-depth (mse, l1) and DS-NeRF KL depth losses, the
 interlevel regularizer, the distortion regularizer on interval histories
-(mip-NeRF 360) and on point samples (Instant-NGP), and NGP's opacity
-entropy. The URF and Gaussian-NLL depth losses and the Ref-NeRF
+(mip-NeRF 360) and on point samples (Instant-NGP), NGP's opacity entropy
+and NeRF++'s autoexposure regularizer. The URF and Gaussian-NLL depth losses and the Ref-NeRF
 regularizers are not ported yet.
 """
 
@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from outdoor_nerf_depth_torch.ops import stepfuns
+from outdoor_nerf_depth_torch.ops import mathx, stepfuns
 
 
 def rgb_loss(pred, target, lossmult=None, kind: str = "mse", charb_padding=0.001):
@@ -109,3 +109,8 @@ def opacity_entropy_loss(acc, eps: float = 1e-5) -> torch.Tensor:
     """NGP's opacity regularizer: -o log o pushes each ray to 0 or 1."""
     o = torch.clamp(acc, eps, 1.0 - eps)
     return torch.mean(-o * torch.log(o))
+
+
+def autoexposure_reg(scale, shift) -> torch.Tensor:
+    """Keep the learned per-image exposure near identity: |scale - 1| + |shift|."""
+    return torch.mean(mathx.abs_(scale - 1.0)) + torch.mean(mathx.abs_(shift))

@@ -1,10 +1,10 @@
 """The train step, the occupancy-grid refresh and the chunked image renderer.
 
-Port of the reference package's `train/step.py` for the mip-NeRF 360 and
-Instant-NGP models: Adam with the log-linear delayed schedule,
+Port of the reference package's `train/step.py` for the mip-NeRF 360,
+Instant-NGP and NeRF++ models: Adam with the log-linear delayed schedule,
 per-top-level-module value then norm gradient clipping, the loss assembly
 (with NGP's point-sampled distortion, opacity entropy and rm_s/vr_s
-marching stats), `nan_to_num` on the gradients, the `grad_norm` stat, the
+marching stats, and NeRF++'s autoexposure normalization and regularizer), `nan_to_num` on the gradients, the `grad_norm` stat, the
 NGP occupancy refresh, chunked `render_image`, and the checkpoint identity
 (`checkpoint_meta`) and restore (`load_checkpoint`). One device, eager
 PyTorch, float32 matmuls (TF32 off, see `train/loop.py:set_full_float32`).
@@ -33,7 +33,7 @@ from outdoor_nerf_depth_torch.train.config import Config
 def check_supported(config: Config):
     """Raise NotImplementedError for options this slice of the port lacks."""
     unported = []
-    if config.model not in ("mipnerf360", "ngp"):
+    if config.model not in ("mipnerf360", "ngp", "nerfpp"):
         unported.append(f"model={config.model}")
     if config.model == "ngp" and config.ngp_eval_renderer != "train":
         unported.append(f"ngp_eval_renderer={config.ngp_eval_renderer}")
@@ -44,7 +44,7 @@ def check_supported(config: Config):
                          ("weight_decay_mults", {})):
         if getattr(config, key) != default:
             unported.append(f"{key}={getattr(config, key)}")
-    for key in ("autoexpo_loss_mult", "orientation_loss_mult",
+    for key in ("orientation_loss_mult",
                 "orientation_coarse_loss_mult", "predicted_normal_loss_mult",
                 "predicted_normal_coarse_loss_mult"):
         if getattr(config, key) > 0:
@@ -164,8 +164,12 @@ def _total_loss(config: Config, batch, renderings, ray_history, rays):
     rgb_losses, mses, depth_losses = [], [], []
     use_depth = config.lambda_depth > 0 and batch.depth_sup is not None
     for i, rendering in enumerate(renderings):
+        rgb_pred = rendering["rgb"]
+        if "autoexpo_scale" in rendering:
+            # Learned per-image exposure: compare at the canonical exposure.
+            rgb_pred = (rgb_pred - rendering["autoexpo_shift"]) / rendering["autoexpo_scale"]
         rl, mse = losses_lib.rgb_loss(
-            rendering["rgb"], batch.rgb[..., :3], lossmult=rays.lossmult,
+            rgb_pred, batch.rgb[..., :3], lossmult=rays.lossmult,
             kind=config.data_loss_type, charb_padding=config.charb_padding,
         )
         rgb_losses.append(rl)
@@ -205,6 +209,10 @@ def _total_loss(config: Config, batch, renderings, ray_history, rays):
     if config.opacity_loss_mult > 0 and "acc" in renderings[-1]:
         loss_terms["opacity"] = config.opacity_loss_mult * losses_lib.opacity_entropy_loss(
             renderings[-1]["acc"]
+        )
+    if config.autoexpo_loss_mult > 0 and "autoexpo_scale" in renderings[-1]:
+        loss_terms["autoexpo"] = config.autoexpo_loss_mult * losses_lib.autoexposure_reg(
+            renderings[-1]["autoexpo_scale"], renderings[-1]["autoexpo_shift"]
         )
     stats["mses"] = torch.stack(mses).detach()
     stats["psnrs"] = metrics_lib.mse_to_psnr(stats["mses"])

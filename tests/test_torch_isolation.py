@@ -9,6 +9,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "outdoor_nerf_depth_torch"
 BANNED = re.compile(r"\bjax\b|outdoor_nerf_depth_tpu", re.IGNORECASE)
@@ -58,3 +60,15 @@ def test_chip_smoke_imports_only_the_port():
             roots.add(node.module.split(".")[0])
     allowed = {"torch", "numpy", "outdoor_nerf_depth_torch", "__future__"} | set(sys.stdlib_module_names)
     assert roots <= allowed, roots - allowed
+
+
+@pytest.mark.parametrize("module", ["outdoor_nerf_depth_torch.ops.geometry",
+                                    "outdoor_nerf_depth_torch.models.nerfpp",
+                                    "outdoor_nerf_depth_torch.models.mlps",
+                                    "outdoor_nerf_depth_torch.data.datasets"])
+def test_the_nerfpp_modules_are_checked(module):
+    """The NeRF++ slice's modules are among those the tests above import
+    with the reference stack blocked and scan for its names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())

@@ -1,7 +1,8 @@
 """The port's KITTI data path against the reference package on the CPU: the
 PNG codec against PIL, the COLMAP readers and writers, the depth decode,
 the view split, the pose normalization, the fixture writer, the
-driving-scene dataset, and short train and eval runs on the fixture."""
+driving-scene and NeRF++ datasets, and short train and eval runs on the
+fixture."""
 
 import dataclasses
 import importlib.util
@@ -9,6 +10,7 @@ import io
 import json
 import os
 import pathlib
+import shutil
 import struct
 import zlib
 
@@ -333,6 +335,59 @@ def test_driving_dataset_matches_the_reference(fixtures, case):
             assert (gv is None) == (wv is None), name
             if wv is not None:
                 np.testing.assert_array_equal(gv.numpy(), wv, err_msg=name)
+
+
+_NERFPP_CASES = {
+    "gt_train": dict(split="train"),
+    "gt_test": dict(split="test"),
+    "stereo_crop_skip": dict(split="train", depth_sup_type="stereo_crop", skip=2),
+    "min_depth_map": dict(split="train", min_depth_map=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_NERFPP_CASES))
+def test_nerfpp_dataset_matches_the_reference(fixtures, tmp_path, case):
+    kwargs = dict(_NERFPP_CASES[case])
+    split = kwargs.pop("split")
+    scene = fixtures[0] / "nerfpp"
+    if kwargs.pop("min_depth_map", False):
+        # The fixture's min-depth maps are all 0: write varied ones and a
+        # max_depth.txt, so each ray's near bound differs.
+        scene = tmp_path / "nerfpp"
+        shutil.copytree(fixtures[0] / "nerfpp", scene)
+        rng = np.random.default_rng(8)
+        for f in sorted((scene / split / "min_depth").iterdir()):
+            png.write_png(str(f), rng.integers(0, 256, (HEIGHT, WIDTH)).astype(np.uint8))
+        (scene / split / "max_depth.txt").write_text("37.5\n")
+    args = (str(scene), split, 64)
+    got = t_datasets.NerfppSceneDataset(*args, **kwargs)
+    want = j_datasets.NerfppSceneDataset(*args, **kwargs)
+    for name in ("images", "depth_gt", "depth_sup", "min_depth", "camtoworlds", "pixtocams"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert (got.near, got.far, got.scene_scale) == (want.near, want.far, want.scene_scale)
+    assert got.scene_scale != 1.0 and got.n_images == want.n_images
+    for _ in range(2):
+        g, w = got.sample_batch(), want.sample_batch()
+        assert type(g.rays).__name__ == type(w.rays).__name__
+        for f in dataclasses.fields(w.rays):
+            wv = getattr(w.rays, f.name)
+            if wv is None:
+                continue
+            gv = getattr(g.rays, f.name).numpy()
+            if split == "train":  # pixels, cast on the device later: exact
+                np.testing.assert_array_equal(gv, wv, err_msg=f.name)
+            else:  # host-cast rays: the reference casts in float64, the port in float32
+                np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6, err_msg=f.name)
+        for name in ("rgb", "depth_gt", "depth_sup"):
+            np.testing.assert_array_equal(getattr(g, name).numpy(), getattr(w, name),
+                                          err_msg=name)
+    near = g.rays.near.numpy()
+    if case == "min_depth_map":
+        assert near.min() >= 1e-4 and near.max() > 1.0
+    else:
+        np.testing.assert_array_equal(near, np.float32(1e-4))
 
 
 def test_trace_sphere_scene_matches_the_reference_bit_for_bit():

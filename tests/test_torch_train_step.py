@@ -177,5 +177,5 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         t_loop.train(t_load_config(FLAGSHIP, SMALL + ["compute_dtype=bfloat16"]), device="cpu")
     with pytest.raises(NotImplementedError):
-        t_loop.train(t_load_config(FLAGSHIP, ["dataset=nerfpp", f"exp_dir={tmp_path}"]),
+        t_loop.train(t_load_config(FLAGSHIP, ["dataset=tnt", f"exp_dir={tmp_path}"]),
                      device="cpu")
