@@ -43,6 +43,13 @@ def _module_name(model: torch.nn.Module, path) -> str:
     return ".".join(names)
 
 
+def flax_submodule(model: torch.nn.Module, name: str):
+    """The submodule of `model` that holds the Flax top-level module `name`,
+    or None when the model has none."""
+    path = _module_name(model, (name,))
+    return model.get_submodule(path) if hasattr(model, path) else None
+
+
 def params_from_flax(tree: Mapping, model: torch.nn.Module) -> torch.nn.Module:
     """Copy `tree` (numpy leaves, with or without the "params" level) into `model`.
 

@@ -10,10 +10,14 @@ are auto-named `Dense_{i}` in the order they are made, which
 `flax_dense_names` lists; its weights start Xavier-uniform. Biases start
 at zero.
 
+A bfloat16 `compute_dtype` runs every layer in bfloat16 the way a Flax
+`Dense(dtype=bfloat16)` does (`Dense` below): the parameters stay float32,
+the inputs are cast where the reference casts them, and the density and
+rgb heads return to float32 before their activations.
+
 Not ported in this slice (they raise NotImplementedError): the Ref-NeRF
 options (density or predicted normals, integrated directional encoding,
-reflections, roughness, n.v), density and bottleneck noise, GLO vectors,
-and a bfloat16 compute dtype.
+reflections, roughness, n.v), density and bottleneck noise and GLO vectors.
 """
 
 from __future__ import annotations
@@ -36,9 +40,29 @@ _REF_NERF_OPTIONS = (
 )
 
 
+class Dense(nn.Linear):
+    """A Flax `Dense` with its compute dtype.
+
+    In float32 it is `nn.Linear`. In bfloat16 the input, weight and bias are
+    cast to bfloat16, the product (accumulated in float32 by the matmul) is
+    rounded to bfloat16, and the bias is added in bfloat16, as the
+    reference does; the parameters stay float32.
+    """
+
+    def __init__(self, fan_in: int, fan_out: int, compute_dtype=torch.float32):
+        super().__init__(fan_in, fan_out)
+        self.compute_dtype = mathx.as_dtype(compute_dtype)
+
+    def forward(self, x):
+        dtype = self.compute_dtype
+        if dtype == torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+
+
 def _dense(fan_in: int, fan_out: int, generator: Optional[torch.Generator],
-           init: str = "he") -> nn.Linear:
-    layer = nn.Linear(fan_in, fan_out)
+           init: str = "he", compute_dtype=torch.float32) -> Dense:
+    layer = Dense(fan_in, fan_out, compute_dtype)
     if init == "he":
         # He-uniform (Flax `he_uniform`): U(-sqrt(6 / fan_in), sqrt(6 / fan_in)).
         nn.init.kaiming_uniform_(layer.weight, nonlinearity="relu", generator=generator)
@@ -89,8 +113,6 @@ class ConeFieldMLP(nn.Module):
             unported.append("density_noise/bottleneck_noise")
         if num_glo_features > 0:
             unported.append("num_glo_features")
-        if compute_dtype not in ("float32", torch.float32):
-            unported.append(f"compute_dtype={compute_dtype}")
         if unported:
             raise NotImplementedError(f"ConeFieldMLP options not ported yet: {unported}")
         if warp not in (None, "contract"):
@@ -108,6 +130,7 @@ class ConeFieldMLP(nn.Module):
         self.disable_rgb = disable_rgb
         self.bottleneck_width = bottleneck_width
         self.use_viewdirs = use_viewdirs
+        self.compute_dtype = dtype = mathx.as_dtype(compute_dtype)
         self.register_buffer(
             "basis", spaces.sphere_basis(basis_shape, basis_subdivisions), persistent=False
         )
@@ -117,15 +140,15 @@ class ConeFieldMLP(nn.Module):
         self.trunk_names = []
         for i in range(net_depth):
             name = f"trunk{i}"
-            self.add_module(name, _dense(x_dim, net_width, generator))
+            self.add_module(name, _dense(x_dim, net_width, generator, compute_dtype=dtype))
             self.trunk_names.append(name)
             x_dim = net_width + (enc_dim if i % skip_layer == 0 and i > 0 else 0)
-        self.density_head = _dense(x_dim, 1, generator)
+        self.density_head = _dense(x_dim, 1, generator, compute_dtype=dtype)
         if disable_rgb:
             return
         y_dim = 0
         if bottleneck_width > 0:
-            self.bottleneck = _dense(x_dim, bottleneck_width, generator)
+            self.bottleneck = _dense(x_dim, bottleneck_width, generator, compute_dtype=dtype)
             y_dim += bottleneck_width
         if use_viewdirs:
             y_dim += 3 + 6 * deg_view  # pos_enc(viewdirs, 0, deg_view) with identity
@@ -133,10 +156,11 @@ class ConeFieldMLP(nn.Module):
         self.view_names = []
         for i in range(net_depth_viewdirs):
             name = f"view{i}"
-            self.add_module(name, _dense(y_dim, net_width_viewdirs, generator))
+            self.add_module(name, _dense(y_dim, net_width_viewdirs, generator,
+                                         compute_dtype=dtype))
             self.view_names.append(name)
             y_dim = net_width_viewdirs + (skip_dim if i % skip_layer_dir == 0 and i > 0 else 0)
-        self.rgb_head = _dense(y_dim, 3, generator)
+        self.rgb_head = _dense(y_dim, 3, generator, compute_dtype=dtype)
 
     def predict_density(self, means, covs):
         """Raw (pre-activation) density + trunk features for given Gaussians."""
@@ -145,13 +169,13 @@ class ConeFieldMLP(nn.Module):
         lifted_means, lifted_vars = spaces.project_and_diagonalize(means, covs, self.basis)
         x = spaces.integrated_pos_enc(
             lifted_means, lifted_vars, self.min_deg_point, self.max_deg_point
-        )
+        ).to(self.compute_dtype)
         skip_in = x
         for i, name in enumerate(self.trunk_names):
             x = F.relu(getattr(self, name)(x))
             if i % self.skip_layer == 0 and i > 0:
                 x = torch.cat([x, skip_in], dim=-1)
-        return self.density_head(x)[..., 0], x
+        return self.density_head(x)[..., 0].to(torch.float32), x
 
     def forward(self, means, covs, viewdirs=None):
         """means [..., S, 3], covs [..., S, 3, 3], viewdirs [..., 3] -> dict."""
@@ -168,6 +192,7 @@ class ConeFieldMLP(nn.Module):
             parts.append(self.bottleneck(x))
         if viewdirs is not None:
             dir_enc = spaces.pos_enc(viewdirs, 0, self.deg_view, append_identity=True)
+            dir_enc = dir_enc.to(self.compute_dtype)
             parts.append(dir_enc[..., None, :].expand(means.shape[:-1] + dir_enc.shape[-1:]))
         y = torch.cat(parts, dim=-1)
         skip_in = y
@@ -175,7 +200,9 @@ class ConeFieldMLP(nn.Module):
             y = F.relu(getattr(self, name)(y))
             if i % self.skip_layer_dir == 0 and i > 0:
                 y = torch.cat([y, skip_in], dim=-1)
-        rgb = torch.sigmoid(self.rgb_premultiplier * self.rgb_head(y) + self.rgb_bias)
+        rgb = torch.sigmoid(
+            self.rgb_premultiplier * self.rgb_head(y).to(torch.float32) + self.rgb_bias
+        )
         out["rgb"] = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
         return out
 
@@ -200,9 +227,7 @@ class PointFieldMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype not in ("float32", torch.float32):
-            raise NotImplementedError(
-                f"PointFieldMLP: compute_dtype={compute_dtype} is not ported yet")
+        self.compute_dtype = dtype = mathx.as_dtype(compute_dtype)
         self.pos_degrees, self.view_degrees = pos_degrees, view_degrees
         self.skips = tuple(i for i in skips if i != net_depth - 1)
         enc_dim = input_dim * (1 + 2 * pos_degrees)
@@ -215,23 +240,24 @@ class PointFieldMLP(nn.Module):
         layers += [("sigma_head", x_dim, 1), ("base", x_dim, net_width),
                    ("view", net_width + dir_dim, net_width // 2), ("rgb_head", net_width // 2, 3)]
         for name, fan_in, fan_out in layers:
-            self.add_module(name, _dense(fan_in, fan_out, generator, init="xavier"))
+            self.add_module(name, _dense(fan_in, fan_out, generator, init="xavier",
+                                         compute_dtype=dtype))
         self.flax_dense_names = [name for name, _, _ in layers]
         self.trunk_names = self.flax_dense_names[:net_depth]
 
     def forward(self, pts: torch.Tensor, viewdirs: torch.Tensor):
         """pts [..., S, input_dim], viewdirs [..., 3] (per ray) or [..., S, 3]
         -> (sigma [..., S], rgb [..., S, 3])."""
-        x = spaces.pos_enc(pts, 0, self.pos_degrees)
+        x = spaces.pos_enc(pts, 0, self.pos_degrees).to(self.compute_dtype)
         skip_in = x
         for i, name in enumerate(self.trunk_names):
             x = F.relu(getattr(self, name)(x))
             if i in self.skips:
                 x = torch.cat([x, skip_in], dim=-1)
-        sigma = mathx.abs_(self.sigma_head(x)[..., 0])
+        sigma = mathx.abs_(self.sigma_head(x).to(torch.float32)[..., 0])
         base = self.base(x)
-        dir_enc = spaces.pos_enc(viewdirs, 0, self.view_degrees)
+        dir_enc = spaces.pos_enc(viewdirs, 0, self.view_degrees).to(self.compute_dtype)
         if dir_enc.dim() == base.dim() - 1:  # per-ray directions: broadcast over S
             dir_enc = dir_enc[..., None, :].expand(base.shape[:-1] + dir_enc.shape[-1:])
         y = F.relu(self.view(torch.cat([base, dir_enc], dim=-1)))
-        return sigma, torch.sigmoid(self.rgb_head(y))
+        return sigma, torch.sigmoid(self.rgb_head(y).to(torch.float32))

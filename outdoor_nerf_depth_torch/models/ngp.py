@@ -1,11 +1,16 @@
 """Instant-NGP: hash-grid field and occupancy-grid marching renderer.
 
 Port of `HashGridField` and `HashGridModel` from the reference package's
-`models/ngp.py`, for the train path: AABB clip, fixed-width candidate
+`models/ngp.py`. The train path: AABB clip, fixed-width candidate
 marching, occupancy lookup, compaction of the occupied candidates, the
 optional batch-wide `sample_budget` compaction, the field (hash encoding,
 truncated-exp density, degree-4 SH view encoding, sigmoid rgb), compositing
-weights (CUDA kernel K1 on the GPU) and the render.
+weights (CUDA kernel K1 on the GPU) and the render. The iterative eval
+renderer (`HashGridModel.render_eval`): rounds of occupied candidates
+spaced by `calc_dt`, composited with a carried transmittance until every
+ray is opaque or out of the scene. With a bfloat16 `compute_dtype` the
+MLPs run in bfloat16 and density and rgb return to float32 before their
+activations, as in the reference.
 
 The occupancy grid is a buffer of the model (`occupancy`), so `.to()` and
 copies carry it; `forward` takes the grid as an explicit argument, as in the
@@ -15,9 +20,8 @@ renderer pass the buffer. Layer names match the Flax modules:
 `field.rgb_hidden{i}`, `field.rgb_out`.
 
 Not ported in this slice, each raising NotImplementedError where asked for:
-the iterative eval renderer (`ngp_eval_renderer="iterative"`, checked by
-`train/step.py:check_supported`), per-image extrinsics refinement
-(`optimize_ext`) and the HDR tonemapper (`rgb_activation="none"`).
+per-image extrinsics refinement (`optimize_ext`) and the HDR tonemapper
+(`rgb_activation="none"`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from outdoor_nerf_depth_torch.models.mlps import _dense
-from outdoor_nerf_depth_torch.ops import hashgrid, volren
+from outdoor_nerf_depth_torch.ops import hashgrid, mathx, volren
 from outdoor_nerf_depth_torch.ops import occupancy as occ
 
 
@@ -67,31 +71,35 @@ class HashGridField(nn.Module):
             grad_mode=grad_mode, compute_dtype=compute_dtype, generator=generator,
         )
         self.e_max = float(occ.cascade_extents(scale)[-1])
-        self.sigma_hidden = _dense(self.encoder.out_dim, hidden_width, generator)
-        self.sigma_out = _dense(hidden_width, 1 + geo_features, generator)
+        self.compute_dtype = dtype = mathx.as_dtype(compute_dtype)
+        self.sigma_hidden = _dense(self.encoder.out_dim, hidden_width, generator,
+                                   compute_dtype=dtype)
+        self.sigma_out = _dense(hidden_width, 1 + geo_features, generator, compute_dtype=dtype)
         y_dim = 16 + geo_features  # SH degree 4 + geometry features
         self.rgb_names = []
         for i in range(rgb_hidden_layers):
-            self.add_module(f"rgb_hidden{i}", _dense(y_dim, hidden_width, generator))
+            self.add_module(f"rgb_hidden{i}",
+                            _dense(y_dim, hidden_width, generator, compute_dtype=dtype))
             self.rgb_names.append(f"rgb_hidden{i}")
             y_dim = hidden_width
-        self.rgb_out = _dense(y_dim, 3, generator)
+        self.rgb_out = _dense(y_dim, 3, generator, compute_dtype=dtype)
 
     def density(self, x, prepared=None):
         """sigma [...], geometry features [..., geo_features] of world points."""
         # The world cube [-e_max, e_max]^3 of the outermost cascade -> unit cube.
         enc = self.encoder(x / (2.0 * self.e_max) + 0.5, prepared=prepared)
-        h = self.sigma_out(F.relu(self.sigma_hidden(enc)))
+        h = self.sigma_out(F.relu(self.sigma_hidden(enc))).to(torch.float32)
         return hashgrid.truncated_exp(h[..., 0]), h[..., 1:]
 
-    def forward(self, x, viewdirs):
+    def forward(self, x, viewdirs, prepared=None):
         """x [..., 3] world points, viewdirs [..., 3] unit -> (sigma, rgb)."""
-        sigma, feats = self.density(x)
+        sigma, feats = self.density(x, prepared=prepared)
         sh = hashgrid.spherical_harmonics(viewdirs)
         y = torch.cat([sh.expand(feats.shape[:-1] + sh.shape[-1:]), feats], dim=-1)
+        y = y.to(self.compute_dtype)
         for name in self.rgb_names:
             y = F.relu(getattr(self, name)(y))
-        return sigma, torch.sigmoid(self.rgb_out(y))
+        return sigma, torch.sigmoid(self.rgb_out(y).to(torch.float32))
 
 
 class HashGridModel(nn.Module):
@@ -121,10 +129,9 @@ class HashGridModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        # Options of the iterative eval renderer and the HDR field, which
-        # are not ported; with a sigmoid field `output_radiance` changes nothing.
-        del eval_samples_per_round, eval_candidates_per_round, eval_early_stop_eps
-        del eval_max_total_samples, output_radiance, num_images
+        # Options of the HDR field, which is not ported; with a sigmoid
+        # field `output_radiance` changes nothing.
+        del output_radiance, num_images
         if optimize_ext:
             raise NotImplementedError("optimize_ext (extrinsics refinement) is not ported yet")
         self.scale = scale
@@ -136,6 +143,10 @@ class HashGridModel(nn.Module):
         self.near_distance = near_distance
         self.density_threshold = density_threshold
         self.bg_intensity_range = tuple(bg_intensity_range)
+        self.eval_samples_per_round = eval_samples_per_round
+        self.eval_candidates_per_round = eval_candidates_per_round
+        self.eval_early_stop_eps = eval_early_stop_eps
+        self.eval_max_total_samples = eval_max_total_samples
         field_kwargs = dict(field_params or {})
         field_kwargs.setdefault("hash_layout", hash_layout)
         # An explicit field_params["hash_layout"] wins; checkpoints record it.
@@ -233,6 +244,89 @@ class HashGridModel(nn.Module):
         }
         history = dict(weights=weights, steps=t_mid, lengths=dt, valid=valid)
         return [rendering], [history]
+
+    @torch.no_grad()
+    def render_eval(self, rays, occupancy: torch.Tensor, max_rounds: Optional[int] = None):
+        """The iterative eval renderer: the reference's alive-ray marching loop.
+
+        Each round marches every ray still alive `eval_candidates_per_round`
+        steps of `calc_dt`, runs the field on the first
+        `eval_samples_per_round` occupied candidates (skipped when a round
+        has none), composites them under the transmittance carried from
+        earlier rounds, and advances t past the window, or only past the
+        last rendered sample when the window held more occupied candidates
+        than were rendered. A ray retires once its transmittance drops to
+        `eval_early_stop_eps` or it leaves the scene. The loop ends when no
+        ray is alive or after `max_rounds` (by default enough to render
+        `eval_max_total_samples` through fully occupied windows). Each round
+        reads one or two flags back from the device.
+
+        Returns rgb (over the `bg_intensity_range` midpoint), depth,
+        distance_mean, acc, samples_per_ray and rounds, per ray.
+        """
+        n_cand, n_samp = self.eval_candidates_per_round, self.eval_samples_per_round
+        if max_rounds is None:
+            max_rounds = max(4, 2 * self.eval_max_total_samples // n_samp)
+        exp_factor = 0.0 if self.scale <= 0.5 else 1.0 / 256.0
+        origins, viewdirs = rays.origins, rays.viewdirs
+        t_near, t_far, hit = occ.intersect_aabb(origins, viewdirs, self.e_max,
+                                                near_min=self.near_distance)
+        t_near = torch.maximum(t_near, rays.near[..., 0])
+        t_far = torch.maximum(torch.minimum(t_far, rays.far[..., 0]), t_near + 1e-4)
+        thresh = torch.clamp(occ.mean_density(occupancy), max=self.density_threshold)
+
+        t, alive = t_near, hit
+        trans = torch.ones_like(t_near)
+        rgb_acc = torch.zeros(t_near.shape + (3,), device=t_near.device)
+        depth, acc = torch.zeros_like(t_near), torch.zeros_like(t_near)
+        n_samples = torch.zeros(t_near.shape, dtype=torch.int64, device=t_near.device)
+        # The packed tables, built once: the weights are frozen for the render.
+        prepared = self.prepare_tables()
+        offsets = torch.arange(n_cand + 1, dtype=torch.float32, device=t_near.device)
+        rounds = 0
+        while rounds < max_rounds and bool(alive.any()):
+            # A constant step within a round, growing with t across rounds.
+            dt_r = occ.calc_dt(t, exp_factor, self.eval_max_total_samples,
+                               self.grid_resolution, self.e_max)
+            edges = t[..., None] + offsets * dt_r[..., None]
+            mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
+            pts = origins[..., None, :] + mids[..., None] * viewdirs[..., None, :]
+            occupied = occ.lookup(occupancy, pts, self.scale, thresh)
+            occupied &= (mids < t_far[..., None]) & alive[..., None]
+            # Without subsampling an over-full window is revisited next round.
+            t_mid, dt, valid = occ.compact_occupied(edges, occupied, n_samp, subsample=False)
+            if bool(valid.any()):
+                sample_pts = origins[..., None, :] + t_mid[..., None] * viewdirs[..., None, :]
+                # Dead slots all read one constant point; their output is masked.
+                sample_pts = torch.where(valid[..., None], sample_pts, 0.0)
+                sigma, rgb = self.field(sample_pts, viewdirs[..., None, :], prepared=prepared)
+            else:  # pure marching: no field evaluation this round
+                sigma = torch.zeros_like(t_mid)
+                rgb = torch.zeros(t_mid.shape + (3,), device=t_mid.device)
+            tau = torch.where(valid, sigma, 0.0) * dt
+            trans_in = torch.exp(-torch.cat(
+                [torch.zeros_like(tau[..., :1]), torch.cumsum(tau[..., :-1], dim=-1)], dim=-1))
+            w = trans[..., None] * trans_in * (1.0 - torch.exp(-tau))
+            new_trans = trans * torch.exp(-torch.sum(tau, dim=-1))
+            t_end_valid = torch.amax(torch.where(valid, t_mid + 0.5 * dt, float("-inf")), dim=-1)
+            truncated = torch.sum(occupied, dim=-1) > n_samp
+            t = torch.where(truncated, torch.maximum(t_end_valid, t), edges[..., -1])
+            alive = alive & (new_trans > self.eval_early_stop_eps) & (t < t_far)
+            trans = new_trans
+            rgb_acc = rgb_acc + torch.sum(w[..., None] * rgb, dim=-2)
+            depth = depth + torch.sum(w * t_mid, dim=-1)
+            acc = acc + torch.sum(w, dim=-1)
+            n_samples = n_samples + torch.sum(valid, dim=-1)
+            rounds += 1
+        lo, hi = self.bg_intensity_range
+        return {
+            "rgb": rgb_acc + (1.0 - acc[..., None]) * (0.5 * (lo + hi)),
+            "depth": depth,
+            "distance_mean": depth,
+            "acc": acc,
+            "samples_per_ray": n_samples,
+            "rounds": torch.full(t_near.shape, rounds, dtype=torch.int64, device=t_near.device),
+        }
 
 
 def make_density_fn(model: HashGridModel, prepared=None):

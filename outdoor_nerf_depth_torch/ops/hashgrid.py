@@ -15,8 +15,10 @@ sorted by physical row and prefix-summed in f32 (CUDA kernel K2a on the
 GPU, `ops/prefix_scan.py`), and each row's sum is the difference of the
 prefix sums at its segment's ends; eight rolls fold the physical-row sums
 back onto the canonical table. `grad_mode` "auto" and "sorted" both take
-this path on every device. The layouts "oct", "quad" and "corner", and
-`pack_rows`, are not ported and raise.
+this path on every device. The encoding computes in f32 and returns its
+features in the module's `compute_dtype`, as the reference does; a bf16
+cotangent is cast back to f32 before the table gradient. The layouts
+"oct", "quad" and "corner", and `pack_rows`, are not ported and raise.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from outdoor_nerf_depth_torch.ops import prefix_scan
+from outdoor_nerf_depth_torch.ops import mathx, prefix_scan
 
 # Large primes of the Instant-NGP spatial hash (x uses stride 1).
 _PRIMES = (1, 2_654_435_761, 805_459_861)
@@ -276,8 +278,7 @@ class HashGridEncoding(nn.Module):
             raise NotImplementedError(f"hash-grid layout {layout!r} is not ported yet")
         if grad_mode not in ("auto", "sorted"):
             raise NotImplementedError(f"grad_mode={grad_mode!r} is not ported yet")
-        if compute_dtype not in ("float32", torch.float32):
-            raise NotImplementedError(f"compute_dtype={compute_dtype} is not ported yet")
+        self.compute_dtype = mathx.as_dtype(compute_dtype)
         self.table_size = 2**log2_table_size
         self.resolutions = tuple(
             int(r) for r in level_resolutions(n_levels, base_resolution, max_resolution)
@@ -296,8 +297,10 @@ class HashGridEncoding(nn.Module):
 
     def forward(self, x, prepared=None):
         if prepared is not None:
-            return encode_oct_split(x, self.table, self.resolutions, self.table_size, prepared)
-        return OctSplitEncode.apply(x, self.table, self.resolutions, self.table_size)
+            out = encode_oct_split(x, self.table, self.resolutions, self.table_size, prepared)
+        else:
+            out = OctSplitEncode.apply(x, self.table, self.resolutions, self.table_size)
+        return out.to(self.compute_dtype)
 
 
 def spherical_harmonics(d: torch.Tensor, out_dim: int = 16) -> torch.Tensor:

@@ -13,8 +13,18 @@ import math
 
 import torch
 
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TRIG_PERIOD_CAP = 100.0 * math.pi
 _EXP_CLAMP = 88.0  # exp(89) overflows f32.
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A compute dtype given by name ("float32", "bfloat16") or as a torch dtype."""
+    if isinstance(dtype, torch.dtype) and dtype in _COMPUTE_DTYPES.values():
+        return dtype
+    if dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {dtype!r}: expected one of {sorted(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[dtype]
 
 
 def _range_reduce(x: torch.Tensor) -> torch.Tensor:

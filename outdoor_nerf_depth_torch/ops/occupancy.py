@@ -11,8 +11,9 @@ can then run the field only on its valid sample slots
 
 Random draws (jitter, refreshed cells) come from a `torch.Generator`;
 `update_grid` also takes the cells and the jitter from its caller, so a
-test can feed it the reference's draws. Morton codes, `mark_invisible_cells`
-and `calc_dt` are not ported yet.
+test can feed it the reference's draws. `calc_dt` spaces the iterative eval
+renderer's candidates. Morton codes and `mark_invisible_cells` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+SQRT3 = float(np.sqrt(3.0))
 # The compaction sort key puts invalid slots after valid ones with this
 # offset, as the reference does; the plan is exact for max_samples <= 256.
 _INVALID_KEY = 256
@@ -192,6 +194,13 @@ def intersect_aabb(ray_o, ray_d, half_extent: float, near_min: float = 0.01):
     t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
     t_near = torch.clamp(t_near, min=near_min)
     return t_near, t_far, t_far > t_near
+
+
+def calc_dt(t, exp_step_factor: float, max_samples: int, grid_size: int, scale: float):
+    """The marching step at distance t: t * exp_step_factor clipped to
+    [sqrt(3) / max_samples, sqrt(3) * 2 * scale / grid_size], where `scale` is
+    the outermost cascade's half extent (a factor 0 gives the smallest step)."""
+    return torch.clamp(t * exp_step_factor, SQRT3 / max_samples, SQRT3 * 2.0 * scale / grid_size)
 
 
 def march_candidates(generator, t_near, t_far, n_candidates: int, exponential: bool = True):

@@ -43,7 +43,7 @@ class Config:
     model_params: Any = dataclasses.field(default_factory=dict)
     nerf_mlp_params: Any = dataclasses.field(default_factory=dict)
     prop_mlp_params: Any = dataclasses.field(default_factory=dict)
-    compute_dtype: str = "float32"  # float32 | bfloat16 (bfloat16 not ported yet)
+    compute_dtype: str = "float32"  # float32 | bfloat16 (bf16 matmuls, f32 params)
 
     # -- losses
     data_loss_type: str = "mse"  # mse | charb | rawnerf
@@ -66,7 +66,7 @@ class Config:
     predicted_normal_coarse_loss_mult: float = 0.0
     weight_decay_mults: Any = dataclasses.field(default_factory=dict)
 
-    # -- NGP occupancy grid (the NGP model is not ported yet)
+    # -- NGP occupancy grid
     # Eval renderer for the NGP model: "train" = reuse the dense train-path
     # renderer; "iterative" = occupancy-aware alive-ray marching.
     ngp_eval_renderer: str = "train"
@@ -93,8 +93,9 @@ class Config:
     # Microbatching: split each step's rays into K sequential chunks,
     # accumulate gradients, apply adam once.
     grad_accum_steps: int = 1
-    # Dispatch fusion: K optimizer steps per dispatch of the reference's
-    # compiled program; the same math as K sequential steps.
+    # Dispatch fusion: K optimizer steps per loop iteration (one compiled
+    # dispatch in the reference, K eager steps here); the same math as K
+    # sequential steps, with cadences firing on crossings.
     steps_per_dispatch: int = 1
 
     # -- depth bookkeeping
@@ -109,7 +110,7 @@ class Config:
     checkpoint_every: int = 5000
     keep_checkpoints: int = 3
     # Params-only "slim" checkpoint: when set, eval restores from this file
-    # instead of exp_dir's checkpoints (checkpoints are not ported yet).
+    # instead of exp_dir's checkpoints.
     slim_checkpoint: str = ""
     train_render_every: int = 0
     render_chunk_size: int = 16384

@@ -9,6 +9,16 @@ buffer of the model) is refreshed before step 0 and then every
 `occupancy_update_every` steps, sweeping every cell below
 `occupancy_warmup_steps`.
 
+With `steps_per_dispatch` K > 1 the loop runs K steps per iteration (the
+reference fuses them into one compiled dispatch; eager PyTorch has none to
+fuse, so they run one after another), each on its own batch and its own
+`train_frac`. The grid refresh falls due before an iteration; printing,
+test renders and checkpoints fire when an iteration crosses their cadence,
+and at `max_steps`, and a log line carries the iteration's last step.
+`profile_start_step` > 0 records a `torch.profiler` trace of the steps
+from there for `profile_num_steps` steps (whole iterations) into
+`exp_dir/trace`.
+
 `train` writes `exp_dir/config.json` and the model-identity sidecar, saves a
 checkpoint every `checkpoint_every` steps and at `max_steps` (the one
 labelled N holds N trained steps), resumes from the latest checkpoint, and
@@ -48,9 +58,44 @@ def resolve_device(device=None) -> torch.device:
 
 
 def set_full_float32():
-    """Float32 matmuls and convolutions in full precision, never TF32."""
+    """Float32 matmuls and convolutions in full precision, never TF32; bf16
+    matmuls accumulate in float32 throughout, as the reference's do."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def crossed(before: int, after: int, every: int) -> bool:
+    """Whether going from `before` to `after` trained steps passes a multiple of `every`."""
+    return every > 0 and after // every > before // every
+
+
+class _ProfileWindow:
+    """A torch.profiler trace of the steps [start, start + num_steps), whole
+    iterations of K steps, written to `trace_dir` as a Chrome trace."""
+
+    def __init__(self, start: int, num_steps: int, trace_dir: str, device: torch.device):
+        self.start_step, self.stop_at, self.trace_dir = start, start + num_steps, trace_dir
+        self.activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            self.activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof, self.first = None, None
+
+    def before(self, step: int, k: int):
+        """Start when this iteration's K steps reach the window."""
+        if self.start_step and self.first is None and step + k > self.start_step:
+            self.prof = torch.profiler.profile(activities=self.activities)
+            self.prof.start()
+            self.first = step
+
+    def after(self, step: int, force: bool = False):
+        """Stop once `step` steps are trained past the window (or when forced)."""
+        if self.prof is not None and (force or step >= self.stop_at):
+            self.prof.stop()
+            os.makedirs(self.trace_dir, exist_ok=True)
+            self.prof.export_chrome_trace(
+                os.path.join(self.trace_dir, f"steps_{self.first}_{step}.json"))
+            self.prof = None
 
 
 def build_dataset(config: Config, split: str):
@@ -150,24 +195,32 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     if config.train_render_every > 0:
         test_dataset = build_dataset(config, "test")
 
+    n_fuse = max(1, config.steps_per_dispatch)
+    profile = _ProfileWindow(config.profile_start_step, config.profile_num_steps,
+                             os.path.join(config.exp_dir, "trace"), device)
     history = []
     t_last, rays_since = time.perf_counter(), 0
-    for step in range(start_step, max_steps):
+    step = start_step
+    while step < max_steps:
+        fused = min(n_fuse, max_steps - step)
+        profile.before(step, n_fuse)
         if occ_update is not None and step >= next_occ:
             # The grid starts empty: without this refresh before step 0 the
             # first step would march no sample at all.
             warmup = step < config.occupancy_warmup_steps
             model.occupancy.copy_(occ_update(model.occupancy, generator, warmup))
             next_occ = (step // occ_every + 1) * occ_every
-        batch = rays_lib.to_device(next(batches), device, non_blocking=True)
-        stats = train_step(batch, step, step / max_steps, generator)
-        done = step + 1
-        rays_since += config.batch_size
-        if (config.print_every > 0 and done % config.print_every == 0) or done == max_steps:
+        for i in range(fused):
+            batch = rays_lib.to_device(next(batches), device, non_blocking=True)
+            stats = train_step(batch, step + i, (step + i) / max_steps, generator)
+        prev, step = step, step + fused
+        rays_since += config.batch_size * fused
+        profile.after(step)
+        if crossed(prev, step, config.print_every) or step == max_steps:
             loss = float(stats["loss"])  # waits for the device
             now = time.perf_counter()
             entry = {
-                "step": done,
+                "step": step,
                 "loss": loss,
                 "psnr": float(stats["psnr"]),
                 "rays_per_sec": rays_since / (now - t_last),
@@ -180,22 +233,24 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
             log_fn(json.dumps({k: round(v, 5) if isinstance(v, float) else v
                                for k, v in entry.items()}))
             t_last, rays_since = time.perf_counter(), 0
-        if test_dataset is not None and done % config.train_render_every == 0:
-            idx = (done // config.train_render_every) % test_dataset.n_images
+        if test_dataset is not None and crossed(prev, step, config.train_render_every):
+            idx = (step // config.train_render_every) % test_dataset.n_images
             batch = test_dataset.image_batch(idx)
-            rendering = step_lib.render_image(model, batch, config.render_chunk_size, device)
+            rendering = step_lib.render_image(model, batch, config.render_chunk_size, device,
+                                              config.ngp_eval_renderer)
             m = metrics_lib.MetricSuite(compute_ssim=False)(
                 rendering["rgb"], batch.rgb.numpy(),
                 pred_depth=rendering["distance_mean"],
                 gt_depth=None if batch.depth_gt is None else batch.depth_gt.numpy(),
                 depth_scale=config.depth_scale,
             )
-            log_fn(json.dumps({"step": done, "test_view": idx,
+            log_fn(json.dumps({"step": step, "test_view": idx,
                                **{k: round(v, 4) for k, v in m.items()}}))
-        if (config.checkpoint_every > 0 and done % config.checkpoint_every == 0) \
-                or done == max_steps:
-            ckpt.save(done, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                             "step": done, "generator": generator.get_state()})
+        # The checkpoint labelled N holds N trained steps.
+        if crossed(prev, step, config.checkpoint_every) or step == max_steps:
+            ckpt.save(step, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                             "step": step, "generator": generator.get_state()})
+    profile.after(step, force=True)  # a window that ran past max_steps
     return model, history
 
 
@@ -220,7 +275,8 @@ def evaluate(config: Config, model, split: str = "test", max_images=None,
     for i in range(n):
         batch = dataset.image_batch(i)
         eval_rays += dataset.height * dataset.width
-        rendering = step_lib.render_image(model, batch, config.render_chunk_size, device)
+        rendering = step_lib.render_image(model, batch, config.render_chunk_size, device,
+                                          config.ngp_eval_renderer)
         m = suite(
             rendering["rgb"], batch.rgb.numpy(),
             pred_depth=rendering["distance_mean"],

@@ -4,10 +4,15 @@ Port of the reference package's `train/step.py` for the mip-NeRF 360,
 Instant-NGP and NeRF++ models: Adam with the log-linear delayed schedule,
 per-top-level-module value then norm gradient clipping, the loss assembly
 (with NGP's point-sampled distortion, opacity entropy and rm_s/vr_s
-marching stats, and NeRF++'s autoexposure normalization and regularizer), `nan_to_num` on the gradients, the `grad_norm` stat, the
-NGP occupancy refresh, chunked `render_image`, and the checkpoint identity
-(`checkpoint_meta`) and restore (`load_checkpoint`). One device, eager
-PyTorch, float32 matmuls (TF32 off, see `train/loop.py:set_full_float32`).
+marching stats, NeRF++'s autoexposure normalization and regularizer, and
+the `weight_decay_mults` term), `nan_to_num` on the gradients, the
+`grad_norm` stat, the forward under `remat` (none, dots or full),
+gradient accumulation over `grad_accum_steps` chunks of the batch, the NGP
+occupancy refresh, chunked `render_image` (NGP through the iterative
+renderer when `ngp_eval_renderer="iterative"`), and the checkpoint
+identity (`checkpoint_meta`) and restore (`load_checkpoint`). One device,
+eager PyTorch; the model computes in its `compute_dtype`, and float32
+matmuls run in full float32 (TF32 off, see `train/loop.py:set_full_float32`).
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import os
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as checkpoint_lib
 
+from outdoor_nerf_depth_torch import convert
 from outdoor_nerf_depth_torch import models as models_lib
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib
 from outdoor_nerf_depth_torch.data import rays as rays_lib
@@ -30,20 +37,23 @@ from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train.config import Config
 
 
+REMAT_MODES = ("none", "dots", "full")
+# The matmuls whose outputs remat="dots" keeps, like the reference's
+# `checkpoint_dots` policy: every other op of the forward is recomputed.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
 def check_supported(config: Config):
-    """Raise NotImplementedError for options this slice of the port lacks."""
+    """Raise NotImplementedError for options this slice of the port lacks,
+    and ValueError for values no version of it takes."""
+    if config.remat not in REMAT_MODES + (None,):
+        raise ValueError(f"remat={config.remat!r}: expected one of {REMAT_MODES}")
+    if config.ngp_eval_renderer not in ("train", "iterative"):
+        raise ValueError(f"ngp_eval_renderer={config.ngp_eval_renderer!r}")
     unported = []
     if config.model not in ("mipnerf360", "ngp", "nerfpp"):
         unported.append(f"model={config.model}")
-    if config.model == "ngp" and config.ngp_eval_renderer != "train":
-        unported.append(f"ngp_eval_renderer={config.ngp_eval_renderer}")
-    if config.compute_dtype != "float32":
-        unported.append(f"compute_dtype={config.compute_dtype}")
-    for key, default in (("remat", "none"), ("grad_accum_steps", 1),
-                         ("steps_per_dispatch", 1), ("profile_start_step", 0),
-                         ("weight_decay_mults", {})):
-        if getattr(config, key) != default:
-            unported.append(f"{key}={getattr(config, key)}")
     for key in ("orientation_loss_mult",
                 "orientation_coarse_loss_mult", "predicted_normal_loss_mult",
                 "predicted_normal_coarse_loss_mult"):
@@ -54,10 +64,14 @@ def check_supported(config: Config):
 
 
 def build_model(config: Config, generator: Optional[torch.Generator] = None):
-    """The model of `config`, initialized from `generator` (on the CPU)."""
+    """The model of `config`, initialized from `generator` (on the CPU).
+
+    It computes in the config's `compute_dtype` unless `model_params` names
+    another; its parameters are float32 either way.
+    """
     check_supported(config)
     params = dict(config.model_params or {})
-    params.setdefault("compute_dtype", config.compute_dtype)
+    params["compute_dtype"] = mathx.as_dtype(params.get("compute_dtype", config.compute_dtype))
     if config.model == "mipnerf360":
         params.setdefault("nerf_mlp_params", config.nerf_mlp_params or None)
         params.setdefault("prop_mlp_params", config.prop_mlp_params or None)
@@ -225,6 +239,84 @@ def _total_loss(config: Config, batch, renderings, ray_history, rays):
     return loss_terms, stats
 
 
+def _remat_on(config: Config) -> bool:
+    return config.remat not in ("none", None)  # the command line reads none as None
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _DOT_OPS:
+        return checkpoint_lib.CheckpointPolicy.MUST_SAVE
+    return checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return checkpoint_lib.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def make_forward(config: Config, model, compute_extras: bool):
+    """forward(rays, train_frac, generator) -> (renderings, ray_history).
+
+    Under `remat` "dots" or "full" the model's forward (not the loss) is a
+    non-reentrant checkpoint: "full" keeps nothing inside it, "dots" keeps
+    the matmul outputs; the backward recomputes the rest. The recompute
+    starts from the generator state the forward started from, so it draws
+    the same jitter; the caller puts the generator back where the forward
+    left it once the backward is done (the recompute may stop early).
+    """
+
+    def run(rays, train_frac, generator):
+        return model(rays, train_frac=train_frac, compute_extras=compute_extras,
+                     generator=generator, **_grid_kwargs(model))
+
+    if not _remat_on(config):
+        return run
+    context_fn = _dots_contexts if config.remat == "dots" else checkpoint_lib.noop_context_fn
+
+    def forward(rays, train_frac, generator):
+        start = None if generator is None else generator.get_state()
+        calls = []
+
+        def region(region_rays):
+            if calls and start is not None:  # the recompute, inside the backward
+                generator.set_state(start)
+            calls.append(None)
+            return run(region_rays, train_frac, generator)
+
+        return checkpoint_lib.checkpoint(region, rays, use_reentrant=False,
+                                         context_fn=context_fn)
+
+    return forward
+
+
+def _decayed_params(config: Config, model):
+    """(mult, parameters) of each top-level module `weight_decay_mults` names
+    (by its name in the reference's parameter tree); absent names add nothing."""
+    out = []
+    for name, mult in (config.weight_decay_mults or {}).items():
+        module = convert.flax_submodule(model, name)
+        if module is not None:
+            out.append((float(mult), list(module.parameters())))
+    return out
+
+
+def _chunks(obj, n: int):
+    """`obj` (a batch or rays) cut into n equal chunks along the ray axis, in order."""
+    size = rays_lib.leaves(obj)[0].shape[0]
+    if size % n:
+        raise ValueError(f"grad_accum_steps={n} does not divide a batch of {size} rays")
+    return [rays_lib.map_fields(lambda x: x[i * (size // n):(i + 1) * (size // n)], obj)
+            for i in range(n)]
+
+
+def _mean_stats(stats):
+    """The mean over chunks of every stat (nested dicts of tensors)."""
+    first = stats[0]
+    if isinstance(first, dict):
+        return {k: _mean_stats([s[k] for s in stats]) for k in first}
+    return torch.mean(torch.stack(stats), dim=0)
+
+
 def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
                     camtype: str = "perspective"):
     """Returns step(batch, step_index, train_frac, generator=None) -> stats.
@@ -232,25 +324,53 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
     `batch` lives on the model's device. A batch of `Pixels` is cast to rays
     there with `cameras` (tensors on the same device). `step_index` counts
     the updates made so far and sets the learning rate. An NGP model marches
-    through its `occupancy` buffer.
+    through its `occupancy` buffer. With `grad_accum_steps` K > 1 the batch
+    is cut into K equal chunks in order, the chunks' gradients are summed
+    and divided by K before one Adam update, and each stat is the mean over
+    the chunks.
     """
     compute_extras = config.lambda_depth > 0 and config.depth_loss_type in (
         "mse", "l1", "urf", "nll"
     )
     params = list(model.parameters())
+    forward = make_forward(config, model, compute_extras)
+    remat = _remat_on(config)
+    decayed = _decayed_params(config, model)
+    n_accum = max(1, config.grad_accum_steps)
+
+    def chunk_backward(batch, rays, train_frac, generator):
+        """Forward, loss and backward of one chunk; its stats."""
+        renderings, ray_history = forward(rays, train_frac, generator)
+        after = None if generator is None or not remat else generator.get_state()
+        loss_terms, stats = _total_loss(config, batch, renderings, ray_history, rays)
+        if config.weight_decay_mults:
+            loss_terms["weight"] = sum(
+                (mult * sum(torch.sum(p**2) for p in ps) for mult, ps in decayed),
+                torch.zeros((), device=stats["psnr"].device))
+        total = sum(loss_terms.values())
+        total.backward()
+        if after is not None:
+            generator.set_state(after)
+        stats["loss_terms"] = {k: v.detach() for k, v in loss_terms.items()}
+        stats["loss"] = total.detach()
+        return stats
 
     def step(batch, step_index: int, train_frac: float, generator=None):
         rays = batch.rays
         if isinstance(rays, rays_lib.Pixels):
             rays = cameras_lib.cast_pixels(rays, cameras, camtype)
-        renderings, ray_history = model(
-            rays, train_frac=train_frac, compute_extras=compute_extras,
-            generator=generator if config.randomized else None, **_grid_kwargs(model),
-        )
-        loss_terms, stats = _total_loss(config, batch, renderings, ray_history, rays)
-        total = sum(loss_terms.values())
+        generator = generator if config.randomized else None
         optimizer.zero_grad(set_to_none=False)
-        total.backward()
+        if n_accum == 1:
+            stats = chunk_backward(batch, rays, train_frac, generator)
+        else:
+            stats = _mean_stats([
+                chunk_backward(c_batch, c_rays, train_frac, generator)
+                for c_batch, c_rays in zip(_chunks(batch, n_accum), _chunks(rays, n_accum))])
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(n_accum)
         with torch.no_grad():
             for p in params:
                 if p.grad is None:  # unused this step: a zero gradient
@@ -262,8 +382,6 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
         for group in optimizer.param_groups:
             group["lr"] = lr_fn(step_index)
         optimizer.step()
-        stats["loss_terms"] = {k: v.detach() for k, v in loss_terms.items()}
-        stats["loss"] = total.detach()
         return stats
 
     return step
@@ -298,24 +416,32 @@ def make_occupancy_update_fn(config: Config, model):
 
 
 @torch.no_grad()
-def render_image(model, batch, chunk_size: int = 16384, device=None):
+def render_image(model, batch, chunk_size: int = 16384, device=None,
+                 ngp_eval_renderer: str = "train"):
     """Render a full image ([H, W] rays) in chunks; returns numpy [H, W, ...].
 
     Deterministic (no jitter, train_frac 1) with every extra; the per-ray
-    outputs of the finest level. An NGP model marches through its grid.
+    outputs of the finest level. An NGP model marches through its grid:
+    with the train path's dense renderer, or with `render_eval` when
+    `ngp_eval_renderer` is "iterative" (the port's NGP model always carries
+    its grid, so no call is gridless).
     """
     device = device or next(model.parameters()).device
+    iterative = isinstance(model, HashGridModel) and ngp_eval_renderer == "iterative"
     rays = batch.rays
     h, w = rays.origins.shape[:2]
     flat = rays_lib.map_fields(lambda r: r.reshape((h * w,) + r.shape[2:]), rays)
     outs = []
     for start in range(0, h * w, chunk_size):
-        chunk = rays_lib.map_fields(lambda r: r[start : start + chunk_size], flat)
-        renderings, _ = model(
-            rays_lib.to_device(chunk, device), train_frac=1.0, compute_extras=True,
-            **_grid_kwargs(model),
-        )
-        outs.append({k: v.cpu() for k, v in renderings[-1].items()})
+        chunk = rays_lib.to_device(
+            rays_lib.map_fields(lambda r: r[start : start + chunk_size], flat), device)
+        if iterative:
+            final = model.render_eval(chunk, model.occupancy)
+        else:
+            renderings, _ = model(chunk, train_frac=1.0, compute_extras=True,
+                                  **_grid_kwargs(model))
+            final = renderings[-1]
+        outs.append({k: v.cpu() for k, v in final.items()})
     return {
         k: torch.cat([o[k] for o in outs]).reshape((h, w) + outs[0][k].shape[1:]).numpy()
         for k in outs[0]

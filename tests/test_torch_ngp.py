@@ -276,13 +276,15 @@ def test_cli_trains_and_evaluates_ngp_on_cpu(capsys, tmp_path):
     assert lines[-1]["split"] == "test" and np.isfinite(lines[-1]["mean"]["psnr"])
 
 
-def test_unported_ngp_options_raise():
+def test_unported_ngp_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         t_build("ngp", **dict(MODEL, optimize_ext=True))
     with pytest.raises(NotImplementedError):
         t_build("ngp", **dict(MODEL, field_params=dict(FIELD, rgb_activation="none")))
+    scatter = dict(MODEL, sample_budget=8, field_params=dict(FIELD, grad_mode="scatter"))
     with pytest.raises(NotImplementedError):
-        t_loop.train(t_load_config(CONFIG, SMALL + ["ngp_eval_renderer=iterative"]),
+        t_loop.train(t_load_config(CONFIG, SMALL + [f"exp_dir={tmp_path}",
+                                                    "model_params=" + json.dumps(scatter)]),
                      device="cpu")
 
 

@@ -175,7 +175,8 @@ def test_cli_trains_and_evaluates_on_cpu(capsys, tmp_path):
 
 def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
-        t_loop.train(t_load_config(FLAGSHIP, SMALL + ["compute_dtype=bfloat16"]), device="cpu")
+        t_loop.train(t_load_config(FLAGSHIP, SMALL + ["orientation_loss_mult=0.1"]),
+                     device="cpu")
     with pytest.raises(NotImplementedError):
         t_loop.train(t_load_config(FLAGSHIP, ["dataset=tnt", f"exp_dir={tmp_path}"]),
                      device="cpu")
