@@ -76,6 +76,21 @@ non-zero without the final line:
               sample budget 0 (mean |difference| of rgb and opacity below
               0.02) and against the CPU on 128 rays; rays/s of both renderers
               (and of the dense one at the config's budget) and their ratio
+  priors      the depth-prior generators at full width on one synthetic
+              KITTI frame (376x1241, padded to 384x1248): StereoNet cfnet and
+              pcwnet (max disparity 192, base 32) on a pair whose right view
+              is the left warped by a known disparity ramp, GuidedCompletionNet
+              (base 32) and DepthCompletionNet (ResNet-34, base 64) on 5%
+              sparse depth; for each the forward ms and peak memory, one
+              profiled forward (device time by kind and by op), the outputs on
+              a 128x256 crop held against the same net on the CPU, and 20 Adam
+              steps (lr 1e-4) at 256x512, batch 2, whose loss must fall; no kernel of
+              the port may launch in them. Then the chain on the fixture of
+              phase kitti: completion priors for its 30 views from the trained
+              guided net, ste_conf priors (confidence >= 0.5) for two synthetic
+              KITTI pairs from the trained cfnet, every PNG read back,
+              DrivingSceneDataset on the completion prior, and the mip flagship
+              trained on it for 4 steps and evaluated (K1a/K1b counted)
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -99,12 +114,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib  # noqa: E402
+from outdoor_nerf_depth_torch.data import png  # noqa: E402
 from outdoor_nerf_depth_torch.data import rays as rays_lib  # noqa: E402
+from outdoor_nerf_depth_torch.depth_priors import generate, stereo  # noqa: E402
 from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  # noqa: E402
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd  # noqa: E402
-from outdoor_nerf_depth_torch.tools import make_kitti_fixture  # noqa: E402
+from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
+from outdoor_nerf_depth_torch.tools import train_prior  # noqa: E402
 from outdoor_nerf_depth_torch.train import step as step_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.config import load_config  # noqa: E402
 from outdoor_nerf_depth_torch.train.loop import (  # noqa: E402
@@ -179,6 +197,25 @@ SCAN_BF16_RTOL = float(torch.finfo(torch.bfloat16).eps)
 KITTI_VIEWS = 30
 KITTI_MIP_STEPS, KITTI_MIP_RESUMED_STEPS, KITTI_CKPT_EVERY = 4, 6, 2
 KITTI_TEST_VIEWS = 3  # views 9, 19, 29
+# The priors phase: one KITTI frame (376x1241, padded to a multiple of 32),
+# the training crop and batch of the reference's prior CLIs, the crop held
+# against the CPU, and the chain's stereo folder (pairs of KITTI frames).
+PRIOR_FRAME, PRIOR_PADDED = (376, 1241), (384, 1248)
+PRIOR_CROP, PRIOR_BATCH, PRIOR_STEPS = (256, 512), 2, 20
+# Adam at 1e-4, a tenth of the prior CLI's default: at 1e-3 the first step
+# moves every weight by ~1e-3, the completion nets' depth overshoots by
+# ~100 m and their output ReLU dies for many initialisations (in the
+# reference too; PERF.md §6), which would leave nothing to learn.
+PRIOR_LR = 1e-4
+PRIOR_CPU_CROP = (128, 256)
+PRIOR_RAMP_DISP = 64.0  # the synthetic pair's disparity ramp: 4 to ~60 px
+PRIOR_STEREO_PAIRS = 2
+PRIOR_CONF_THRESHOLD = 0.5
+# Card against CPU, the same float32 weights and inputs: cuDNN's convolution
+# algorithms sum in other orders than the CPU's through 20 to 70 conv layers;
+# disparities and depths are held to 1e-3 of the largest value, confidences
+# (in [0, 1]) to 1e-3.
+PRIOR_CPU_RTOL_OF_MAX = 1e-3
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -743,6 +780,8 @@ def phase_render(config, model):
 KERNEL_KINDS = (  # first match wins; names as the CUDA libraries and torch give them
     ("volren_weights", ("weights_fwd_kernel", "weights_bwd_kernel")),  # K1a, K1b
     ("prefix_scan", ("prefix_scan_",)),  # K2a, K2b
+    ("convolution", ("fprop", "dgrad", "wgrad", "convolve", "conv2d", "conv3d", "winograd",
+                     "cudnn", "fft2d", "implicit_")),  # the prior nets' cuDNN kernels
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
     ("sort", ("sort", "radix")),
     ("scan", ("scan", "cumsum")),
@@ -1413,6 +1452,254 @@ def phase_ngp_eval(config, model):
 
 
 
+def _smooth_image(gen, h, w):
+    """Band-limited random image in [0, 1]: low-res noise resized up."""
+    base = torch.rand(1, 3, h // 16, w // 16, generator=gen)
+    img = torch.nn.functional.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+    return img[0].permute(1, 2, 0).numpy()
+
+
+def _stereo_pair(gen, h, w, max_disp=PRIOR_RAMP_DISP):
+    """A left image and the right one warped from it by a known smooth
+    disparity ramp: right(x) = left(x + d), so left(x) = right(x - d)."""
+    left = _smooth_image(gen, h, w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disp = 4.0 + (max_disp - 8.0) * (yy / h) + 2.0 * np.sin(xx / 37.0)
+    xs = np.clip(xx + disp, 0, w - 1)
+    x0 = np.floor(xs).astype(np.int64)
+    x1 = np.minimum(x0 + 1, w - 1)
+    t = (xs - x0)[..., None]
+    row = np.arange(h)[:, None]
+    right = left[row, x0] * (1 - t) + left[row, x1] * t
+    return left, right.astype(np.float32), disp.astype(np.float32)
+
+
+def _driving_frame(gen, h, w):
+    """An image and a metric depth map shaped like a road scene (near at the
+    bottom, far at the top, 5 to 80 m), and its 5% sparse subsample."""
+    rgb = _smooth_image(gen, h, w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    depth = np.clip(5.0 + 75.0 * (1.0 - yy / h) ** 2 + 3.0 * np.sin(xx / 50.0), 5.0, 80.0)
+    keep = torch.rand(h, w, generator=gen).numpy() < 0.05
+    return rgb, np.where(keep, depth, 0.0).astype(np.float32), depth.astype(np.float32)
+
+
+def _crops(arrays, size):
+    """A batch of PRIOR_BATCH crops of `size` from each [H, W, ...] array,
+    at fixed corners."""
+    (ch, cw), (h, w) = size, arrays[0].shape[:2]
+    corners = [(0, 0), (h - ch, w - cw)][:PRIOR_BATCH]
+    return tuple(np.stack([a[y:y + ch, x:x + cw] for y, x in corners]) for a in arrays)
+
+
+def _op_times(prof, steps):
+    """Device ms per step, children included, of the prior nets' op kinds:
+    2D and 3D convolutions, the guided conv's einsum, GroupNorm, resizes,
+    softmaxes and gathers."""
+    ops = {"aten::cudnn_convolution", "aten::einsum", "aten::native_group_norm",
+           "aten::upsample_bilinear2d", "aten::upsample_trilinear3d", "aten::_softmax",
+           "aten::gather", "aten::constant_pad_nd"}
+    out = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in ops:
+            continue
+        name = e.key
+        if name == "aten::cudnn_convolution":
+            name += f" {len(e.input_shapes[0]) - 2}d" if e.input_shapes else ""
+        out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _prior_forward(label, net, inputs, cpu_inputs, out_keys, conf_keys=()):
+    """Forward ms (median of 5) and peak memory at full width, one profiled
+    forward (device time by kind and by op), and the outputs on a crop held
+    against the same net on the CPU."""
+    net.eval()
+    with torch.inference_mode():
+        net(*inputs)  # cuDNN picks its algorithms on the first call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            net(*inputs)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
+            net(*inputs)
+            torch.cuda.synchronize()
+        gpu = net(*train_prior.to_device(cpu_inputs, "cuda"))
+    cpu_net = copy.deepcopy(net).cpu()
+    with torch.no_grad():
+        ref = cpu_net(*train_prior.to_device(cpu_inputs, "cpu"))
+    gpu = gpu if isinstance(gpu, dict) else {"depth": gpu}
+    ref = ref if isinstance(ref, dict) else {"depth": ref}
+    errors = {}
+    for key in out_keys:
+        err = float((gpu[key].cpu() - ref[key]).abs().max())
+        tol = PRIOR_CPU_RTOL_OF_MAX * (1.0 if key in conf_keys else float(ref[key].abs().max()))
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{label} {key}: card vs CPU {err} > {tol}")
+        errors[key] = {"max_abs_err": err, "tolerance": tol}
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    by_kind = {}
+    for e in kernels:
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + e.self_device_time_total / 1e3
+    return {"forward_ms": statistics.median(times), "forward_ms_all": times,
+            "max_memory_allocated_bytes": peak,
+            "profiled_device_ms": sum(by_kind.values()),
+            "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+            "device_ms_by_op": _op_times(prof, 1),
+            "kernel_launches": sum(e.count for e in kernels),
+            "cpu_check": {"crop": list(PRIOR_CPU_CROP), **errors}}
+
+
+def _prior_train(net, loss_fn, batch):
+    """PRIOR_STEPS Adam steps (optax's defaults at PRIOR_LR) on one fixed
+    batch at the training crop; the loss must fall."""
+    net.train()
+    optimizer = train_prior.make_optimizer(net, PRIOR_LR)
+    batch = train_prior.to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(PRIOR_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(train_prior.train_step(optimizer, loss_fn, batch)))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall in {PRIOR_STEPS} steps: {losses}")
+    return {"steps": PRIOR_STEPS, "batch": PRIOR_BATCH, "crop": list(PRIOR_CROP), "lr": PRIOR_LR,
+            "step_ms": step_ms, "median_step_ms_after_first": statistics.median(step_ms[1:]),
+            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _emit_progress(net, record):
+    train = record["train"]
+    emit({"phase": "priors_progress", "net": net, "forward_ms": record["forward_ms"],
+          "step_ms": train["median_step_ms_after_first"], "first_loss": train["first_loss"],
+          "last_loss": train["last_loss"]})
+
+
+def phase_priors(root):
+    """The depth-prior generators at full width on one KITTI frame (both
+    stereo variants, both completion nets: forward, CPU check, 20 training
+    steps), then the prior -> NeRF chain on the fixture phase `kitti` wrote.
+    No kernel of the port may launch in the prior nets."""
+    gen = torch.Generator().manual_seed(0)
+    (h, w), (ph, pw) = PRIOR_FRAME, PRIOR_PADDED
+    out = {"phase": "priors", "frame": f"{h}x{w} padded to {ph}x{pw}"}
+    _reset_launches()
+
+    left, right, disp = _stereo_pair(gen, h, w)
+    pair = [generate._pad_to_multiple(a)[0] for a in (left, right)]
+    if pair[0].shape[:2] != PRIOR_PADDED:
+        raise AssertionError(f"padded frame {pair[0].shape}")
+    ch, cw = PRIOR_CPU_CROP
+    nets = {}
+    for variant in ("cfnet", "pcwnet"):
+        net = stereo.StereoNet(variant=variant, generator=torch.Generator().manual_seed(1))
+        net.cuda()
+        record = {"config": {"max_disparity": net.max_disparity,
+                             "base_features": net.features.stem.conv.weight.shape[0],
+                             "num_groups": net.num_groups, "concat_features": net.concat_features,
+                             "refine_offsets": net.refine_offsets},
+                  "parameters": sum(p.numel() for p in net.parameters())}
+        record.update(_prior_forward(
+            f"stereo {variant}", net, train_prior.to_device([a[None] for a in pair], "cuda"),
+            [a[None, :ch, :cw] for a in pair],
+            ("disparity", "confidence", "disparity_1_4", "disparity_1_8", "uncertainty_1_8"),
+            conf_keys=("confidence",)))
+        loss_fn = train_prior.stereo_loss(net, net.max_disparity)
+        record["train"] = _prior_train(net, loss_fn, _crops((left, right, disp), PRIOR_CROP))
+        out[f"stereo_{variant}"] = record
+        nets[variant] = net
+        _emit_progress(f"stereo_{variant}", record)
+
+    rgb, sparse, depth = _driving_frame(gen, h, w)
+    frame = [generate._pad_to_multiple(a)[0] for a in (rgb, sparse)]
+    for arch in ("guided", "resnet"):
+        net = generate.build_completion_net(arch, torch.Generator().manual_seed(2)).cuda()
+        record = {"parameters": sum(p.numel() for p in net.parameters())}
+        record.update(_prior_forward(
+            f"completion {arch}", net, train_prior.to_device([a[None] for a in frame], "cuda"),
+            [a[None, :ch, :cw] for a in frame], ("depth",)))
+        loss_fn = train_prior.completion_loss(net, 0.01)
+        record["train"] = _prior_train(net, loss_fn, _crops((rgb, sparse, depth), PRIOR_CROP))
+        out[f"completion_{arch}"] = record
+        nets[arch] = net
+        _emit_progress(f"completion_{arch}", record)
+    launches = {"priors_nets": _launches()}
+    if launches["priors_nets"] != _only():
+        raise AssertionError(f"a kernel launched in the prior nets: {launches['priors_nets']}")
+
+    # The chain: priors from the trained nets into the fixture, read back,
+    # then the flagship trained on the completion prior.
+    scene = os.path.join(root, "dtu_format")
+    work = os.path.join(root, "priors_work")
+    t0 = time.perf_counter()
+    e2e_prior_loop.build_completion_data(scene, work)
+    prior_dir = os.path.join(scene, f"depths_{e2e_prior_loop.PRIOR_NAME}")
+    generate.generate_completion_priors(
+        nets["guided"].state_dict(), os.path.join(scene, "images"),
+        os.path.join(work, "completion_data", "sparse"), prior_dir, arch="guided",
+        log_fn=lambda line: None)
+    completion_s = time.perf_counter() - t0
+    stereo_dirs = {eye: os.path.join(work, eye) for eye in ("left", "right", "ste_conf")}
+    for eye in ("left", "right"):
+        os.makedirs(stereo_dirs[eye])
+    for i in range(PRIOR_STEREO_PAIRS):
+        l_img, r_img, _ = _stereo_pair(gen, h, w)
+        for eye, img in (("left", l_img), ("right", r_img)):
+            png.write_png(os.path.join(stereo_dirs[eye], f"{i:06d}.png"),
+                          (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    log = []
+    t0 = time.perf_counter()
+    generate.generate_stereo_priors(
+        nets["cfnet"].state_dict(), stereo_dirs["left"], stereo_dirs["right"],
+        stereo_dirs["ste_conf"], focal=721.5377, baseline=0.54,
+        confidence_threshold=PRIOR_CONF_THRESHOLD, log_fn=log.append)
+    stereo_s = time.perf_counter() - t0
+    read_back = {}
+    for name, d, shape in (("mffgen_crop", prior_dir, (HEIGHT, WIDTH)),
+                           ("ste_conf", stereo_dirs["ste_conf"], PRIOR_FRAME)):
+        codes = [png.read_png(os.path.join(d, f)) for f in sorted(os.listdir(d))]
+        if not codes or any(c.dtype != np.uint16 or c.shape != shape for c in codes):
+            raise AssertionError(f"{name}: {len(codes)} PNGs, {[c.shape for c in codes[:2]]}")
+        read_back[name] = {"pngs": len(codes),
+                           "density": float(np.mean([(c > 0).mean() for c in codes])),
+                           "max_m": float(max(c.max() for c in codes)) / 256.0}
+    if read_back["mffgen_crop"]["pngs"] != KITTI_VIEWS:
+        raise AssertionError(f"{read_back['mffgen_crop']['pngs']} completion priors")
+    dataset = datasets_lib.DrivingSceneDataset(scene, "train", 4096,
+                                               depth_sup_type=e2e_prior_loop.PRIOR_NAME)
+    valid = float((dataset.depth_sup > 0).mean())
+    if not np.isfinite(dataset.depth_sup).all() or valid <= 0:
+        raise AssertionError(f"DrivingSceneDataset on the prior: valid share {valid}")
+    chunks = KITTI_TEST_VIEWS * math.ceil(HEIGHT * WIDTH / 16384)
+    config = load_config(CONFIG, [f"scene_dir={scene}", f"exp_dir={os.path.join(root, 'priors_mip')}",
+                                  f"max_steps={KITTI_MIP_STEPS}", "print_every=1",
+                                  f"depth_sup_type={e2e_prior_loop.PRIOR_NAME}"])
+    steps = KITTI_MIP_STEPS
+    _, history, _, mip = _kitti_run(config, "priors mip", _only(K1a=3 * steps, K1b=3 * steps),
+                                    _only(K1a=3 * chunks))
+    _check_history(history, steps)
+    launches["priors_mip"], launches["priors_mip_eval"] = mip["train_launches"], mip["eval_launches"]
+    out["chain"] = {"completion_priors_seconds": completion_s, "stereo_priors_seconds": stereo_s,
+                    "stereo_log": log, "read_back": read_back,
+                    "dataset_train_views": dataset.n_images, "depth_sup_valid_share": valid,
+                    "mip": mip}
+    out["launches"] = launches
+    del nets
+    torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -1428,12 +1715,13 @@ def summary(k, launches):
         return sum(launches[p][kernel] for p in ("train", "ngp_train", "kitti_mip",
                                                  "kitti_mip_resumed", "kitti_ngp", "nerfpp",
                                                  "bf16_mip16k", "bf16_flagship", "bf16_ngp",
-                                                 "bf16_nerfpp"))
+                                                 "bf16_nerfpp", "priors_mip"))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
           "launches_note": "mip and NGP train runs on the synthetic scene and the KITTI fixture, "
-                           "float32 and bf16 (the 16k remat run launches K1a twice a level)"}
+                           "float32 and bf16 (the 16k remat run launches K1a twice a level), "
+                           "and mip on the port's own completion prior (phase priors)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     kernels = [
         dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
@@ -1530,7 +1818,8 @@ def main():
         launches.update(phase_bf16_nerfpp(root))
         launches.update(phase_ngp_eval(kitti_ngp_config, kitti_ngp))
         del kitti_ngp
-    launches.update(phase_bf16_synthetic(train_ms_f32))
+        launches.update(phase_bf16_synthetic(train_ms_f32))
+        launches.update(phase_priors(root))
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,6 +13,9 @@ Layout:
   models/    the mip-NeRF 360 proposal model and its cone-field MLPs
   data/      rays, cameras, the synthetic dataset and the prefetching batcher
   train/     config, losses, metrics, the train step and the train loop
+  depth_priors/  the stereo and completion nets that generate depth priors,
+             their datasets, and the writer of the prior PNGs
+  tools/     the fixture writer, quality runs and the depth-prior tools
   convert.py loads a Flax parameter tree (as numpy) into the torch model
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.

@@ -8,6 +8,13 @@ each Flax `Dense` is an `nn.Linear` of the same name; a Dense kernel is
 `Dense_{i}` as its i-th named layer. A Flax `Embed` (`embedding`, NeRF++'s
 autoexposure) is an `nn.Embedding` weight and, like the hash-grid table
 (`field/encoder/table`, [L, T, F]), is copied as it is.
+
+The depth-prior nets (`depth_priors/`) hold 2D and 3D `Conv` kernels
+[*kernel, in, out], which become torch weights [out, in, *kernel], GroupNorm
+`scale`/`bias` (weight and bias), MMAF's `Dense` layers and StereoNet's
+`range_gamma`, a parameter of the model itself. A module that lists
+`flax_names` maps Flax's auto-names of its children (`ConvBlock_0`,
+`ResBlock_3`, `Hourglass3d_0`, ...) to torch attribute paths.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ def _module_name(model: torch.nn.Module, path) -> str:
             if int(auto.group(1)) >= len(dense_names):
                 raise ValueError(f"Flax module {'/'.join(path)} has no counterpart")
             key = dense_names[int(auto.group(1))]
+        key = getattr(module, "flax_names", {}).get(key, key)
         names.append(key)
-        module = getattr(module, key, None)
+        for part in key.split("."):
+            module = getattr(module, part, None)
     return ".".join(names)
 
 
@@ -62,13 +71,16 @@ def params_from_flax(tree: Mapping, model: torch.nn.Module) -> torch.nn.Module:
     for path, val in _flatten(tree):
         *module, leaf = path
         module = _module_name(model, module)
+        prefix = module + "." if module else ""
         val = np.array(val, dtype=np.float32)  # a writable copy
         if leaf == "kernel":
-            name, val = module + ".weight", val.T
-        elif leaf == "embedding":
-            name = module + ".weight"
-        elif leaf in ("bias", "table"):
-            name = f"{module}.{leaf}"
+            # [*kernel, in, out] -> [out, in, *kernel]; a Dense kernel is transposed.
+            name = prefix + "weight"
+            val = val.transpose((val.ndim - 1, val.ndim - 2) + tuple(range(val.ndim - 2)))
+        elif leaf in ("embedding", "scale"):
+            name = prefix + "weight"
+        elif leaf in ("bias", "table") or prefix + leaf in wanted:
+            name = prefix + leaf
         else:
             raise ValueError(f"unexpected Flax leaf {'/'.join(path)}")
         if name not in wanted:
@@ -77,7 +89,7 @@ def params_from_flax(tree: Mapping, model: torch.nn.Module) -> torch.nn.Module:
             raise ValueError(
                 f"{name}: Flax shape {val.shape} (transposed) vs torch {tuple(wanted[name].shape)}"
             )
-        state[name] = torch.from_numpy(np.ascontiguousarray(val))
+        state[name] = torch.from_numpy(val.copy(order="C"))
     missing = sorted(set(wanted) - set(state))
     if missing:
         raise ValueError(f"no Flax parameters for {missing}")

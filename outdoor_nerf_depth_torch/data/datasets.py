@@ -30,7 +30,11 @@ _INVALID_DEPTH = -1.0
 
 
 def load_image(path: str) -> np.ndarray:
-    """Load a PNG as float32 numpy; 16-bit PNGs keep their raw values."""
+    """Load a PNG as float32 numpy; 16-bit PNGs keep their raw values. The
+    port has no JPEG decoder, so a `.jpg`/`.jpeg` path raises ValueError."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        raise ValueError(f"{path}: the port reads PNG images only (it has no JPEG decoder); "
+                         "convert the images to PNG")
     return png.read_png(path).astype(np.float32)
 
 

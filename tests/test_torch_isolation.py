@@ -1,7 +1,8 @@
 """The port stands alone: it imports no module of the TPU package and no
 part of its framework stack, and no file of it names either. It imports no
-PIL either (it reads and writes PNGs itself). `chip_smoke.py` imports none
-of them (it names the TPU kernels it replaces in its report)."""
+PIL, OpenCV or msgpack either (it reads and writes PNGs itself and saves
+weights with torch; none of them is on the GPU machine). `chip_smoke.py`
+imports none of them (it names the TPU kernels it replaces in its report)."""
 
 import ast
 import pathlib
@@ -28,7 +29,8 @@ def _port_modules():
 def test_every_module_imports_without_the_reference_stack():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'outdoor_nerf_depth_tpu', 'PIL'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'outdoor_nerf_depth_tpu', 'PIL',\n"
+        "             'cv2', 'msgpack'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for mod in {_port_modules()!r}:\n"
@@ -69,6 +71,27 @@ def test_chip_smoke_imports_only_the_port():
 def test_the_nerfpp_modules_are_checked(module):
     """The NeRF++ slice's modules are among those the tests above import
     with the reference stack blocked and scan for its names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.depth_priors.blocks",
+    "outdoor_nerf_depth_torch.depth_priors.stereo",
+    "outdoor_nerf_depth_torch.depth_priors.completion",
+    "outdoor_nerf_depth_torch.depth_priors.datasets",
+    "outdoor_nerf_depth_torch.depth_priors.generate",
+    "outdoor_nerf_depth_torch.depth_priors.benchmark_data",
+    "outdoor_nerf_depth_torch.ops.guided_conv",
+    "outdoor_nerf_depth_torch.utils.image",
+    "outdoor_nerf_depth_torch.tools.priors",
+    "outdoor_nerf_depth_torch.tools.train_prior",
+    "outdoor_nerf_depth_torch.tools.e2e_prior_loop",
+])
+def test_the_prior_modules_are_checked(module):
+    """The depth-prior slice's modules are among those the tests above
+    import with the reference stack blocked and scan for its names."""
     assert module in _port_modules()
     path = REPO / (module.replace(".", "/") + ".py")
     assert not BANNED.search(path.read_text())
