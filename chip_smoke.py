@@ -91,6 +91,27 @@ non-zero without the final line:
               KITTI pairs from the trained cfnet, every PNG read back,
               DrivingSceneDataset on the completion prior, and the mip flagship
               trained on it for 4 steps and evaluated (K1a/K1b counted)
+  eval_render the tools on phase kitti's checkpoints: tools.eval restores the
+              mip run (step 6, "restored step 6") and its per-image PSNR,
+              SSIM, RMSE and AbsRel equal the in-train eval's to 1e-4; every
+              saved color_###.png decodes to the 8-bit codes of the rendered
+              array and depth_###.png to its uint16 codes; tools.render draws 8
+              frames of each path (ellipse, spiral, spline, train) at 94x310
+              and 2 ellipse frames at 188 rows from the mip checkpoint and 4
+              ellipse frames from NGP's (ms per frame, K1a launches per frame:
+              3 per render chunk for mip, 1 for NGP); one frame is held against
+              the CPU; tools.eval --offline scores the saved renders against the
+              fixture's images, equal to the same metrics computed here on the
+              8-bit renders to 1e-4
+  lpips       the VGG16 LPIPS machinery with random weights (no LPIPS value is
+              a metric): distances on the card against the CPU to relative
+              1e-4 at 94x310 and 376x1241, ms and peak memory per image pair,
+              and MetricSuite(compute_lpips=True) refusing the unstamped file
+  gate        tools.quality_gate on the analytic sphere scene: NGP at its full
+              600 steps with its thresholds asserted (PSNR >= 26 dB, depth RMSE
+              <= 0.10), mip and NeRF++ at a tenth of their 3,000 steps with
+              their metrics reported; train and eval seconds, ms a step and the
+              K1a, K1b and K2a launches of each (asserted)
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -99,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -122,9 +144,15 @@ from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd  # noqa: E402
 from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
+from outdoor_nerf_depth_torch.tools import eval as eval_tool  # noqa: E402
+from outdoor_nerf_depth_torch.tools import quality_gate  # noqa: E402
+from outdoor_nerf_depth_torch.tools import render as render_tool  # noqa: E402
 from outdoor_nerf_depth_torch.tools import train_prior  # noqa: E402
+from outdoor_nerf_depth_torch.train import lpips as lpips_lib  # noqa: E402
+from outdoor_nerf_depth_torch.train import metrics as metrics_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train import step as step_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.config import load_config  # noqa: E402
+from outdoor_nerf_depth_torch.utils import image as image_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.loop import (  # noqa: E402
     build_dataset, evaluate, set_full_float32, train)
 
@@ -216,6 +244,18 @@ PRIOR_CONF_THRESHOLD = 0.5
 # disparities and depths are held to 1e-3 of the largest value, confidences
 # (in [0, 1]) to 1e-3.
 PRIOR_CPU_RTOL_OF_MAX = 1e-3
+# Phase eval_render: the tools on phase kitti's checkpoints. Per-image
+# metrics of tools.eval against the in-train eval, and of the offline
+# evaluator against the same metrics in-process: 1e-4.
+EVAL_KEYS = ("psnr", "ssim", "rmse", "abs_rel")
+EVAL_TOL = 1e-4
+PATH_FRAMES, NGP_PATH_FRAMES, TALL_FRAMES, TALL_HEIGHT = 8, 4, 2, 188
+# Phase lpips: random VGG16 weights (no metric), the card against the CPU.
+LPIPS_SIZES = [(HEIGHT, WIDTH), PRIOR_FRAME]
+LPIPS_RTOL = 1e-4
+# Phase gate: NGP at its full budget with its thresholds asserted; mip and
+# NeRF++ at a tenth of theirs (the thresholds belong to the full budget).
+GATE_RUNS = (("ngp", 1.0, True), ("mipnerf360", 0.1, False), ("nerfpp", 0.1, False))
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -1047,13 +1087,15 @@ def _kitti_run(config, label, expect, eval_expect):
         "eval_seconds": eval_seconds, "eval_launches": eval_launches,
         "step_ms": [1e3 * config.batch_size / e["rays_per_sec"] for e in history],
         "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
-        **{k: mean[k] for k in ("psnr", "ssim", "rmse", "abs_rel", "n_valid")}}
+        **{k: mean[k] for k in ("psnr", "ssim", "rmse", "abs_rel", "n_valid")},
+        "per_image": [{k: m[k] for k in EVAL_KEYS} for m in per_image]}
 
 
 def phase_kitti(root):
     """The KITTI data path at full width: fixture, mip with a checkpoint
     resume, NGP, and the test split's metrics; launches per part. Returns
-    the launches, and NGP's config and trained model (with its grid)."""
+    the launches, NGP's config and trained model (with its grid), and the
+    resumed mip run's per-image eval metrics."""
     t0 = time.perf_counter()
     make_kitti_fixture.main(root, KITTI_VIEWS)
     fixture_seconds = time.perf_counter() - t0
@@ -1102,7 +1144,7 @@ def phase_kitti(root):
     launches["kitti_ngp"], launches["kitti_ngp_eval"] = ngp["train_launches"], ngp["eval_launches"]
     torch.cuda.empty_cache()
     emit(out)
-    return launches, config, model
+    return launches, config, model, out["mip_resumed"]["per_image"]
 
 
 def phase_nerfpp(root):
@@ -1700,6 +1742,249 @@ def phase_priors(root):
     return launches
 
 
+@contextlib.contextmanager
+def _recording_renders():
+    """Collect every `render_image` output the loop and the tools make."""
+    outs, render_image = [], step_lib.render_image
+
+    def record(*args, **kwargs):
+        outs.append(render_image(*args, **kwargs))
+        return outs[-1]
+
+    step_lib.render_image = record
+    try:
+        yield outs
+    finally:
+        step_lib.render_image = render_image
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its prints kept off this script's output; returns
+    (result, printed text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def _path_run(config_path, kind, frames, per_frame, label, extra=()):
+    """tools.render on a checkpoint: frames written and decoded, launches per frame."""
+    _reset_launches()
+    result, _ = _quiet(render_tool.main, ["--config", config_path, f"path={kind}",
+                                          f"n_frames={frames}", *extra])
+    launches = _launches()
+    n = len(result["frames"])
+    if n != frames or launches != {k: v * n for k, v in per_frame.items()}:
+        raise AssertionError(f"{label}: {n} frames, launches {launches}, expected "
+                             f"{frames} x {per_frame}")
+    for path in result["frames"]:
+        frame = png.read_png(path)
+        if frame.shape != (result["height"], 2 * result["width"] + 2, 3):
+            raise AssertionError(f"{label}: frame {path} has shape {frame.shape}")
+    return {"frames": n, "height": result["height"], "width": result["width"],
+            "frame_ms": result["frame_ms"], "median_frame_ms": statistics.median(result["frame_ms"]),
+            "launches_per_frame": {k: v // n for k, v in launches.items() if v},
+            "video": result["video"]}, launches
+
+
+def phase_eval_render(root, kitti_mip_eval):
+    """The eval and render tools on phase kitti's checkpoints: tools.eval
+    restores the mip run and matches its in-train eval, its saved renders
+    decode to the rendered arrays, tools.render draws every path (and NGP
+    an ellipse), one frame is held against the CPU, and the offline
+    evaluator scores the saved renders against the fixture's images."""
+    mip_config_path = os.path.join(root, "mip", "config.json")
+    config = load_config(mip_config_path)
+    test = build_dataset(config, "test")
+    scale = float(test.scene_scale)
+    chunks = math.ceil(HEIGHT * WIDTH / config.render_chunk_size)
+    out = {"phase": "eval_render", "checkpoint": f"phase kitti mip, step {KITTI_MIP_RESUMED_STEPS}"}
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _recording_renders() as renders:
+        (mean, per_image), printed = _quiet(eval_tool.main, ["--config", mip_config_path])
+    eval_seconds = time.perf_counter() - t0
+    launches = {"eval_render": _launches()}
+    if launches["eval_render"] != _only(K1a=3 * chunks * KITTI_TEST_VIEWS):
+        raise AssertionError(f"tools.eval launches {launches['eval_render']}")
+    if f"restored step {KITTI_MIP_RESUMED_STEPS}" not in printed.splitlines():
+        raise AssertionError(f"tools.eval restored no step {KITTI_MIP_RESUMED_STEPS}: {printed[:200]}")
+    diffs = [abs(got[k] - want[k]) for got, want in zip(per_image, kitti_mip_eval) for k in EVAL_KEYS]
+    if len(per_image) != len(kitti_mip_eval) or max(diffs) > EVAL_TOL:
+        raise AssertionError(f"tools.eval {per_image} differs from the in-train eval {kitti_mip_eval}")
+    render_dir = os.path.join(root, "mip", "renders")
+    for i, r in enumerate(renders):
+        color = png.read_png(os.path.join(render_dir, f"color_{i:03d}.png"))
+        depth = png.read_png(os.path.join(render_dir, f"depth_{i:03d}.png"))
+        codes = np.clip(np.nan_to_num(r["distance_mean"] / scale) * 256.0, 0, 65535).astype(np.uint16)
+        if not (np.array_equal(color, image_lib.to_u8(r["rgb"])) and np.array_equal(depth, codes)):
+            raise AssertionError(f"renders/color_{i:03d}.png or depth_{i:03d}.png differs from the render")
+        summary = png.read_png(os.path.join(render_dir, f"summary_{i:03d}.png"))
+        if summary.shape != (HEIGHT, 4 * WIDTH + 6, 3):
+            raise AssertionError(f"summary_{i:03d}.png has shape {summary.shape}")
+    out["eval"] = {"seconds": eval_seconds, "views": len(per_image), "launches": launches["eval_render"],
+                   "max_abs_diff_to_in_train_eval": max(diffs), "tolerance": EVAL_TOL,
+                   **{k: mean[k] for k in EVAL_KEYS}}
+
+    # The offline evaluator against the fixture's image folder, and the same
+    # metrics computed here on the quantized renders.
+    images = os.path.join(root, "dtu_format", "images")
+    (offline, offline_mean), _ = _quiet(eval_tool.main, ["--offline", images, render_dir,
+                                                         os.path.join(root, "offline.txt")])
+    files = sorted(os.listdir(images))
+    suite = metrics_lib.MetricSuite()
+    offline_diff = 0.0
+    for i, (idx, r) in enumerate(zip(datasets_lib.split_indices(len(files), "test"), renders)):
+        gt = datasets_lib.load_image(os.path.join(images, files[idx])) / 255.0
+        want = suite(image_lib.to_u8(r["rgb"]) / 255.0, gt)
+        offline_diff = max([offline_diff] + [abs(offline[i][k] - want[k]) for k in ("psnr", "ssim")])
+    if len(offline) != KITTI_TEST_VIEWS or offline_diff > EVAL_TOL:
+        raise AssertionError(f"offline eval {offline} differs by {offline_diff}")
+    out["offline"] = {"views": len(offline), "max_abs_diff_in_process": offline_diff,
+                      "psnr": offline_mean["psnr"], "ssim": offline_mean["ssim"]}
+
+    # Camera paths at the fixture's 94x310 (and one at 188 rows), NGP's too;
+    # their launches count with tools.eval's.
+    ngp_config_path = os.path.join(root, "ngp", "config.json")
+    ngp_chunks = math.ceil(HEIGHT * WIDTH / load_config(ngp_config_path).render_chunk_size)
+    tall_width = round(WIDTH * TALL_HEIGHT / HEIGHT)
+    tall_chunks = math.ceil(TALL_HEIGHT * tall_width / config.render_chunk_size)
+    runs = [(kind, mip_config_path, kind, PATH_FRAMES, _only(K1a=3 * chunks), ())
+            for kind in render_tool.PATHS]
+    runs += [(f"ellipse_{TALL_HEIGHT}_rows", mip_config_path, "ellipse", TALL_FRAMES,
+              _only(K1a=3 * tall_chunks), (f"render_height={TALL_HEIGHT}",)),
+             ("ngp_ellipse", ngp_config_path, "ellipse", NGP_PATH_FRAMES, _only(K1a=ngp_chunks), ())]
+    out["paths"] = {}
+    for label, config_path, kind, frames, per_frame, extra in runs:
+        out["paths"][label], counts = _path_run(config_path, kind, frames, per_frame, label, extra)
+        launches["eval_render"] = {k: launches["eval_render"][k] + counts[k] for k in KERNEL_IDS}
+
+    # One frame of the ellipse path held against the CPU.
+    model, _ = step_lib.load_checkpoint(config)
+    pose = render_tool.camera_path(build_dataset(config, "train"), "ellipse", PATH_FRAMES)[0]
+    batch = render_tool.frame_batch(pose, test.pixtocams, HEIGHT, WIDTH, test.near, test.far)
+    check = _render_check(config, model.to("cuda"), mlp_forward_flops, lambda c: _only(K1a=3 * c),
+                          "eval_render_frame", 1e-3, batch=batch)
+    out["frame_cpu_reference"] = check["cpu_reference"]
+    out["launches"] = launches["eval_render"]
+    emit(out)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lpips_flops(h, w):
+    """Multiply-adds x 2 of the 13 VGG16 convolutions on one image."""
+    flops, cin = 0, 3
+    for _, cout, pool_before in lpips_lib.VGG16_CONVS:
+        if pool_before:
+            h, w = h // 2, w // 2
+        flops += 2 * 9 * cin * cout * h * w
+        cin = cout
+    return flops
+
+
+def phase_lpips():
+    """The LPIPS machinery (VGG16, cuDNN f32) with random weights: distances
+    on the card against the CPU, time and peak memory per image pair, and
+    the metric path refusing the unstamped file. No LPIPS value is reported
+    as a metric: random weights measure nothing perceptual."""
+    gen = torch.Generator().manual_seed(11)
+    out = {"phase": "lpips", "weights": "random_weights(default_rng(0)), unstamped; not a metric",
+           "sizes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "random.npz")
+        lpips_lib.save_weights(path, lpips_lib.random_weights(np.random.default_rng(0)))
+        try:
+            metrics_lib.MetricSuite(compute_lpips=True, lpips_weights=path, device="cuda")
+        except ValueError as e:
+            out["metric_path_refuses_unstamped"] = str(e)[-120:]
+        else:
+            raise AssertionError("MetricSuite(compute_lpips=True) accepted unstamped weights")
+        weights = lpips_lib.load_weights(path, require_export_provenance=False)
+        gpu_fn = lpips_lib.make_lpips_fn(path, require_export_provenance=False, device="cuda")
+        cpu_fn = lpips_lib.make_lpips_fn(path, require_export_provenance=False, device="cpu")
+    dev_weights = lpips_lib.to_torch(weights, "cuda")
+    _reset_launches()
+    for h, w in LPIPS_SIZES:
+        pred = _smooth_image(gen, h, w)
+        target = np.clip(pred + 0.05 * torch.randn(pred.shape, generator=gen).numpy(), 0, 1)
+        got, want = gpu_fn(pred, target), cpu_fn(pred, target)
+        rel = abs(got - want) / abs(want)
+        if not (math.isfinite(got) and got > 0 and rel <= LPIPS_RTOL):
+            raise AssertionError(f"LPIPS at {h}x{w}: card {got} against CPU {want}")
+        p, t = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (pred, target))
+        with torch.inference_mode():
+            lpips_lib.lpips_distance(dev_weights, p, t)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            times = []
+            for _ in range(5):
+                start.record()
+                lpips_lib.lpips_distance(dev_weights, p, t)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        flop = 2 * lpips_flops(h, w)
+        out["sizes"][f"{h}x{w}"] = {
+            "card_vs_cpu_rel": rel, "tolerance_rel": LPIPS_RTOL, "ms_per_pair": ms,
+            "ms_per_pair_all": times, "gflop_per_pair": flop / 1e9,
+            "tflop_per_s": flop / 1e12 / (ms / 1e3),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    launches = {"lpips": _launches()}
+    if launches["lpips"] != _only():
+        raise AssertionError(f"a kernel of the port launched in LPIPS: {launches['lpips']}")
+    emit(out)
+    del dev_weights
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gate_launches(name, config, model_levels, test_views):
+    """Launches of one gate's train and eval: mip 3 K1a + 3 K1b a step and 3
+    K1a a render chunk; NGP 1 + 1 a step, 16 K2a (one a hash level), 1 K1a a
+    chunk; NeRF++ none."""
+    steps = config.max_steps
+    chunks = test_views * math.ceil(64 * 96 / config.render_chunk_size)
+    if name == "mipnerf360":
+        return _only(K1a=model_levels * (steps + chunks), K1b=model_levels * steps)
+    if name == "ngp":
+        return _only(K1a=steps + chunks, K1b=steps, K2a=model_levels * steps)
+    return _only()
+
+
+def phase_gate():
+    """tools.quality_gate on the analytic sphere scene: NGP at its full 600
+    steps with its thresholds asserted, mip and NeRF++ at a tenth of their
+    budgets with their metrics reported; launches per gate."""
+    out = {"phase": "gate", "runs": []}
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, scale, asserted in GATE_RUNS:
+            config = quality_gate.gate_config(name, root, scale)
+            # The mip gate's 3 levels; NGP's 16 hash levels (the field's default).
+            levels = config.model_params["num_levels"] if name == "mipnerf360" else NGP_LEVELS
+            _reset_launches()
+            result, _ = _quiet(quality_gate.run_gate, name, root, scale, "cuda")
+            launches[f"gate_{name}"] = _launches()
+            want = _gate_launches(name, config, levels, 2)
+            if launches[f"gate_{name}"] != want:
+                raise AssertionError(f"gate {name}: launches {launches[f'gate_{name}']}, expected {want}")
+            m = result["metrics"]
+            if not all(math.isfinite(m[k]) for k in ("psnr", "ssim", "rmse")):
+                raise AssertionError(f"gate {name}: {m}")
+            if asserted and not result["passed"]:
+                raise AssertionError(f"gate {name} fails its thresholds {result['thresholds']}: {m}")
+            out["runs"].append(dict(result, steps_scale=scale, thresholds_asserted=asserted,
+                                    launches=launches[f"gate_{name}"]))
+            torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -1715,13 +2000,16 @@ def summary(k, launches):
         return sum(launches[p][kernel] for p in ("train", "ngp_train", "kitti_mip",
                                                  "kitti_mip_resumed", "kitti_ngp", "nerfpp",
                                                  "bf16_mip16k", "bf16_flagship", "bf16_ngp",
-                                                 "bf16_nerfpp", "priors_mip"))
+                                                 "bf16_nerfpp", "priors_mip", "eval_render",
+                                                 "gate_ngp", "gate_mipnerf360", "gate_nerfpp"))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
           "launches_note": "mip and NGP train runs on the synthetic scene and the KITTI fixture, "
                            "float32 and bf16 (the 16k remat run launches K1a twice a level), "
-                           "and mip on the port's own completion prior (phase priors)"}
+                           "mip on the port's own completion prior (phase priors), the tools' "
+                           "test-view and camera-path renders (phase eval_render) and the "
+                           "quality gate's mip and NGP runs (phase gate)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     kernels = [
         dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
@@ -1750,7 +2038,7 @@ def summary(k, launches):
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:64",
          "launches": on_path("K2a"), "launches_by_phase": by_phase("K2a"),
          "launches_note": "NGP train runs on the synthetic scene and the KITTI fixture, "
-                          "float32 and bf16",
+                          "float32 and bf16, and the NGP quality gate (phase gate)",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
          "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                     for e in k["bf16_errors"].values()),
@@ -1812,7 +2100,7 @@ def main():
     launches["probe_osplit_bwd"] = phase_probe_osplit_bwd()
     launches["probe_gather"] = phase_probe_gather()
     with tempfile.TemporaryDirectory() as root:
-        kitti_launches, kitti_ngp_config, kitti_ngp = phase_kitti(root)
+        kitti_launches, kitti_ngp_config, kitti_ngp, kitti_mip_eval = phase_kitti(root)
         launches.update(kitti_launches)
         launches.update(phase_nerfpp(root))
         launches.update(phase_bf16_nerfpp(root))
@@ -1820,6 +2108,9 @@ def main():
         del kitti_ngp
         launches.update(phase_bf16_synthetic(train_ms_f32))
         launches.update(phase_priors(root))
+        launches.update(phase_eval_render(root, kitti_mip_eval))
+    launches.update(phase_lpips())
+    launches.update(phase_gate())
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,6 +7,8 @@ numpy (the source of the scene scale that multiplies every depth map), and
 the cast of pixels to rays in torch, on whichever device the tensors live
 (the train step casts on the GPU). `ray_origins_and_viewdirs_np` is the
 reference's numpy cast, kept bit for bit for the scene tracer of fixtures.
+The render paths (`generate_ellipse_path`, `generate_spiral_path`,
+`generate_spline_path`, around `focus_point`) are the reference's numpy.
 Perspective cameras without lens distortion only; fisheye and distortion
 raise NotImplementedError.
 """
@@ -195,3 +197,88 @@ def normalize_poses_pca(poses: np.ndarray):
 def pose_scale(transform: np.ndarray) -> float:
     """Isotropic scale of a normalization transform (metric -> scene units)."""
     return float(np.sqrt((transform[:3, :3] @ transform[:3, :3].T)[0, 0]))
+
+
+# --------------------------------------------------------------------------
+# Render paths, in numpy on the host.
+# --------------------------------------------------------------------------
+
+
+def focus_point(poses: np.ndarray) -> np.ndarray:
+    """Least-squares closest point to all camera optical axes."""
+    directions, origins = poses[:, :3, 2:3], poses[:, :3, 3:4]
+    m = np.eye(3) - directions * np.transpose(directions, [0, 2, 1])
+    mt_m = np.transpose(m, [0, 2, 1]) @ m
+    return np.squeeze(-np.linalg.inv(mt_m.mean(0)) @ (mt_m @ -origins).mean(0))
+
+
+def generate_ellipse_path(poses: np.ndarray, n_frames: int = 120, z_variation: float = 0.0,
+                          z_phase: float = 0.0) -> np.ndarray:
+    """Inward-facing elliptical render path through the camera ring."""
+    center = focus_point(poses) * np.array([1.0, 1.0, 0.0])
+    offset = np.array([center[0], center[1], 0.0])
+    sc = np.percentile(np.abs(poses[:, :3, 3] - offset), 90, axis=0)
+    zlo, zhi = np.percentile(poses[:, :3, 3], [10, 90], axis=0)
+
+    theta = np.linspace(0, 2 * np.pi, n_frames, endpoint=False)
+    positions = np.stack(
+        [
+            sc[0] * np.cos(theta) + offset[0],
+            sc[1] * np.sin(theta) + offset[1],
+            z_variation
+            * (zlo[2] + (zhi - zlo)[2] * (np.cos(theta + 2 * np.pi * z_phase) * 0.5 + 0.5)),
+        ],
+        axis=-1,
+    )
+    avg_up = _normalize(poses[:, :3, 1].sum(0))
+    return np.stack([view_matrix(p - center, avg_up, p) for p in positions])
+
+
+def generate_spiral_path(poses: np.ndarray, bounds, n_frames: int = 120, n_rots: int = 2,
+                         zrate: float = 0.5) -> np.ndarray:
+    """Forward-facing spiral render path (LLFF-style).
+
+    The focus depth is a disparity-space blend of stretched near/far bounds;
+    the spiral radii are the 90th percentile of camera positions; every
+    camera looks at the focus point along the average pose's -z.
+    """
+    bounds = np.asarray(bounds, np.float64).reshape(-1)
+    near_bound = bounds.min() * 0.9
+    far_bound = bounds.max() * 5.0
+    focal = 1.0 / ((1 - 0.75) / near_bound + 0.75 / far_bound)
+
+    radii = np.percentile(np.abs(poses[:, :3, 3]), 90, axis=0)
+    radii = np.concatenate([radii, [1.0]])
+
+    cam2world = pad_pose(average_pose(poses)[None])[0]
+    up = poses[:, :3, 1].mean(0)
+    render_poses = []
+    for theta in np.linspace(0, 2 * np.pi * n_rots, n_frames, endpoint=False):
+        t = radii * np.array([np.cos(theta), -np.sin(theta), -np.sin(theta * zrate), 1.0])
+        position = (cam2world @ t)[:3]
+        lookat = (cam2world @ np.array([0.0, 0, -focal, 1.0]))[:3]
+        render_poses.append(view_matrix(position - lookat, up, position))
+    return np.stack(render_poses)
+
+
+def generate_spline_path(poses: np.ndarray, n_interp: int = 10, spline_degree: int = 5,
+                         smoothness: float = 0.03, rot_weight: float = 0.1) -> np.ndarray:
+    """Smooth B-spline through keyframe poses.
+
+    Poses are lifted to (position, lookat-point, up-point) triplets so
+    rotation interpolates as geometry; returns `n_interp * (n-1)` poses.
+    """
+    import scipy.interpolate
+
+    pos = poses[:, :3, 3]
+    lookat = pos - rot_weight * poses[:, :3, 2]
+    up_pt = pos + rot_weight * poses[:, :3, 1]
+    points = np.stack([pos, lookat, up_pt], axis=1)  # [n, 3, 3]
+
+    n = n_interp * (points.shape[0] - 1)
+    flat = points.reshape(points.shape[0], -1)
+    k = min(spline_degree, flat.shape[0] - 1)
+    tck, _ = scipy.interpolate.splprep(flat.T, k=k, s=smoothness)
+    u = np.linspace(0, 1, n, endpoint=False)
+    new = np.array(scipy.interpolate.splev(u, tck)).T.reshape(n, 3, 3)
+    return np.stack([view_matrix(p - l, u_ - p, p) for p, l, u_ in new])

@@ -1,7 +1,7 @@
 """Ray datasets, the driving-scene loader and the prefetching batcher.
 
-Port of `RayDataset`, `SyntheticDataset`, `DrivingSceneDataset`,
-`NerfppSceneDataset`, `PrefetchIterator` and the helpers they use (`load_image`,
+Port of `RayDataset`, `SyntheticDataset`, `SphereSceneDataset`,
+`DrivingSceneDataset`, `NerfppSceneDataset`, `PrefetchIterator` and the helpers they use (`load_image`,
 `decode_depth_png`, `split_indices`, `trace_sphere_scene`) from the
 reference package's `data/datasets.py`, for one process. Images and random
 draws stay in numpy with the same RNG streams, so a seed gives the same
@@ -299,6 +299,101 @@ def trace_sphere_scene(
 
     depth = np.where(np.isfinite(t_hit), t_hit, _INVALID_DEPTH)
     return np.clip(rgb, 0.0, 1.0).astype(np.float32), depth.astype(np.float32)
+
+
+class SphereSceneDataset(RayDataset):
+    """Deterministic analytic 3D scene rendered by closed-form ray casting.
+
+    Shaded spheres over a ground disk on a black background, which a NeRF
+    can and must fit: the scene of `tools/quality_gate.py` and
+    `configs/spheres_ablation.json`. Geometry fits inside the unit sphere
+    (NeRF++) and the [-0.5, 0.5] cube (NGP scale 0.5); cameras ring at
+    radius 0.95. Depths are exact; background pixels carry invalid depth.
+    """
+
+    def __init__(
+        self,
+        split: str = "train",
+        global_batch_size: int = 128,
+        n_images: int = 24,
+        height: int = 64,
+        width: int = 96,
+        cast_on_device: bool = True,
+        sample_every: int = 1,
+        depth_sup_type: str = "gt",
+    ):
+        """`sample_every` subsamples train views (sparse-view protocol);
+        `depth_sup_type` selects the depth-prior emulation:
+
+          * gt          - exact analytic depth
+          * stereo_like - disparity-domain Gaussian noise (sigma_z ~ z^2)
+            plus 15% holes, the error profile of stereo priors
+          * mono_like   - per-image affine miscalibration times a smooth
+            low-frequency field, the error profile of monocular priors
+          * rgbonly     - no depth supervision (all pixels invalid)
+        """
+        super().__init__(split, global_batch_size, cast_on_device)
+        self._centers = np.array(
+            [[0.18, 0.0, -0.05], [-0.15, 0.14, -0.1], [-0.02, -0.18, 0.02]], np.float32)
+        self._radii = np.array([0.16, 0.13, 0.11], np.float32)
+        self._colors = np.array(
+            [[0.85, 0.25, 0.2], [0.2, 0.7, 0.85], [0.9, 0.8, 0.25]], np.float32)
+        self._ground_z = -0.25
+        self._ground_r = 0.45
+        self._light = np.array([0.45, -0.3, 0.84], np.float32)
+        self._light /= np.linalg.norm(self._light)
+
+        idx = split_indices(n_images, split, sample_every)
+        poses = []
+        for i in range(n_images):
+            ang = 2 * np.pi * i / n_images
+            pos = np.array([0.9 * np.cos(ang), 0.9 * np.sin(ang), 0.3], np.float32)
+            poses.append(cameras_lib.view_matrix(pos, np.array([0.0, 0, 1.0]), pos))
+        self.camtoworlds = np.stack(poses).astype(np.float32)[idx]
+        self.pixtocams = cameras_lib.pinhole_pixtocam(
+            focal=width * 0.9, width=width, height=height).astype(np.float32)
+        self.near, self.far = 0.05, 4.0
+
+        traced = [
+            trace_sphere_scene(c2w, self.pixtocams, height, width, self.near, self._centers,
+                               self._radii, self._colors, self._light, self._ground_z,
+                               self._ground_r)
+            for c2w in self.camtoworlds
+        ]
+        self.images = np.stack([rgb for rgb, _ in traced])
+        self.depth_gt = np.stack([depth for _, depth in traced])
+        self.depth_sup = self._make_depth_prior(depth_sup_type)
+        self._finalize()
+
+    def _make_depth_prior(self, depth_sup_type: str) -> np.ndarray:
+        d = self.depth_gt
+        valid = d > 0
+        if depth_sup_type == "gt":
+            return d.copy()
+        if depth_sup_type == "rgbonly":
+            return np.zeros_like(d)
+        rng = np.random.RandomState(7)  # deterministic priors
+        if depth_sup_type == "stereo_like":
+            # Constant disparity noise => sigma_z = sigma_disp * z^2, plus
+            # matching-failure holes.
+            sigma_disp = 0.02
+            noisy = d + rng.normal(0.0, 1.0, d.shape).astype(np.float32) * (sigma_disp * d**2)
+            holes = rng.uniform(size=d.shape) < 0.15
+            return np.where(valid & ~holes, np.maximum(noisy, 0.0), 0.0).astype(np.float32)
+        if depth_sup_type == "mono_like":
+            sup = np.zeros_like(d)
+            h, w = d.shape[1:3]
+            gy = np.linspace(0.0, np.pi, h, dtype=np.float32)[:, None]
+            gx = np.linspace(0.0, np.pi, w, dtype=np.float32)[None, :]
+            for i in range(d.shape[0]):
+                a = 1.0 + rng.uniform(-0.15, 0.15)
+                b = rng.uniform(-0.03, 0.03)
+                field = 1.0 + 0.08 * np.sin(
+                    gy * rng.randint(1, 3) + rng.uniform(0, 3)
+                ) * np.sin(gx * rng.randint(1, 3) + rng.uniform(0, 3))
+                sup[i] = (a * d[i] + b) * field
+            return np.where(valid, np.maximum(sup, 0.0), 0.0).astype(np.float32)
+        raise ValueError(f"unknown spheres depth_sup_type {depth_sup_type!r}")
 
 
 class DrivingSceneDataset(RayDataset):

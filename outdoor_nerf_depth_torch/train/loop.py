@@ -1,12 +1,15 @@
 """The training loop and the evaluator, on one device.
 
 Port of `train` and `evaluate` from the reference package's `train/loop.py`
-for `dataset=synthetic`, `dataset=driving` and `dataset=nerfpp`: prefetched batches -> train
-step -> JSON log lines with the reference's keys every `print_every` steps,
-an optional held-out view render every `train_render_every` steps,
-checkpoints, and per-image eval metrics. An NGP model's occupancy grid (a
-buffer of the model) is refreshed before step 0 and then every
-`occupancy_update_every` steps, sweeping every cell below
+for `dataset=synthetic`, `spheres`, `driving` and `nerfpp`: prefetched
+batches -> train step -> JSON log lines with the reference's keys every
+`print_every` steps, an optional held-out view render every
+`train_render_every` steps, checkpoints, and per-image eval metrics with
+the renders saved. The log lines' numbers also go to a `MetricWriter` in
+`exp_dir/logs` (`train/...` and `train_render/...` scalars, and the
+held-out view's panel image when TensorBoard is present). An NGP model's
+occupancy grid (a buffer of the model) is refreshed before step 0 and then
+every `occupancy_update_every` steps, sweeping every cell below
 `occupancy_warmup_steps`.
 
 With `steps_per_dispatch` K > 1 the loop runs K steps per iteration (the
@@ -44,6 +47,9 @@ from outdoor_nerf_depth_torch.train import checkpoints as ckpt_lib
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train import step as step_lib
 from outdoor_nerf_depth_torch.train.config import Config, save_config
+from outdoor_nerf_depth_torch.utils import image as image_lib
+from outdoor_nerf_depth_torch.utils import vis as vis_lib
+from outdoor_nerf_depth_torch.utils.logging import MetricWriter
 
 
 def resolve_device(device=None) -> torch.device:
@@ -104,6 +110,14 @@ def build_dataset(config: Config, split: str):
             split,
             global_batch_size=config.batch_size,
             cast_on_device=config.cast_rays_in_train_step,
+        )
+    if config.dataset == "spheres":
+        return datasets_lib.SphereSceneDataset(
+            split,
+            global_batch_size=config.batch_size,
+            cast_on_device=config.cast_rays_in_train_step,
+            sample_every=config.sample_every if split == "train" else 1,
+            depth_sup_type=config.depth_sup_type,
         )
     if config.dataset == "driving":
         return datasets_lib.DrivingSceneDataset(
@@ -190,6 +204,7 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     # since the last multiple of the cadence.
     next_occ = (start_step // occ_every) * occ_every if occ_update is not None else None
     batches = datasets_lib.PrefetchIterator(dataset.sample_batch)
+    writer = MetricWriter(os.path.join(config.exp_dir, "logs"))
 
     test_dataset = None
     if config.train_render_every > 0:
@@ -232,6 +247,7 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
             history.append(entry)
             log_fn(json.dumps({k: round(v, 5) if isinstance(v, float) else v
                                for k, v in entry.items()}))
+            writer.scalars(step, entry, prefix="train")
             t_last, rays_since = time.perf_counter(), 0
         if test_dataset is not None and crossed(prev, step, config.train_render_every):
             idx = (step // config.train_render_every) % test_dataset.n_images
@@ -244,6 +260,11 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
                 gt_depth=None if batch.depth_gt is None else batch.depth_gt.numpy(),
                 depth_scale=config.depth_scale,
             )
+            writer.scalars(step, m, prefix="train_render")
+            panel = vis_lib.side_by_side(
+                rendering["rgb"], batch.rgb.numpy(),
+                vis_lib.visualize_depth(rendering["distance_mean"] / config.depth_scale))
+            writer.image(step, "train_render/view", panel)
             log_fn(json.dumps({"step": step, "test_view": idx,
                                **{k: round(v, 4) for k, v in m.items()}}))
         # The checkpoint labelled N holds N trained steps.
@@ -251,14 +272,20 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
             ckpt.save(step, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                              "step": step, "generator": generator.get_state()})
     profile.after(step, force=True)  # a window that ran past max_steps
+    writer.close()
     return model, history
 
 
 def evaluate(config: Config, model, split: str = "test", max_images=None,
-             log_fn=print, device=None):
-    """Render the split and compute PSNR/SSIM + depth metrics per image.
+             log_fn=print, device=None, save_renders: bool = True):
+    """Render the split and compute PSNR/SSIM(/LPIPS) + depth metrics per image.
 
-    Returns (mean metrics, per-image metrics). Renders are not saved.
+    With `save_renders`, writes into `exp_dir/renders/` per image
+    `color_###.png` (8-bit, the reference's truncating codes),
+    `depth_###.png` (uint16, metres * 256) and `summary_###.png` (render,
+    ground truth, the depth visualization and, where the view has ground
+    truth depth, the signed depth error). Returns (mean metrics, per-image
+    metrics).
     """
     device = resolve_device(device)
     set_full_float32()
@@ -266,8 +293,11 @@ def evaluate(config: Config, model, split: str = "test", max_images=None,
     if hasattr(dataset, "scene_scale"):
         config = config.replace(depth_scale=float(dataset.scene_scale))
     suite = metrics_lib.MetricSuite(
-        compute_ssim=config.compute_ssim, compute_lpips=config.compute_lpips
+        compute_ssim=config.compute_ssim, compute_lpips=config.compute_lpips, device=device
     )
+    render_dir = os.path.join(config.exp_dir, "renders")
+    if save_renders:
+        os.makedirs(render_dir, exist_ok=True)
     model = model.to(device)
     n = dataset.n_images if max_images is None else min(max_images, dataset.n_images)
     per_image = []
@@ -277,14 +307,26 @@ def evaluate(config: Config, model, split: str = "test", max_images=None,
         eval_rays += dataset.height * dataset.width
         rendering = step_lib.render_image(model, batch, config.render_chunk_size, device,
                                           config.ngp_eval_renderer)
+        gt_rgb = batch.rgb.numpy()
+        gt_depth = None if batch.depth_gt is None else batch.depth_gt.numpy()
         m = suite(
-            rendering["rgb"], batch.rgb.numpy(),
+            rendering["rgb"], gt_rgb,
             pred_depth=rendering["distance_mean"],
-            gt_depth=None if batch.depth_gt is None else batch.depth_gt.numpy(),
+            gt_depth=gt_depth,
             depth_scale=config.depth_scale,
         )
         per_image.append(m)
         log_fn(json.dumps({"image": i, **{k: round(v, 4) for k, v in m.items()}}))
+        if save_renders:
+            rgb = rendering["rgb"]
+            depth = rendering["distance_mean"] / config.depth_scale
+            image_lib.save_img_u8(rgb, os.path.join(render_dir, f"color_{i:03d}.png"))
+            image_lib.save_depth_u16(depth, os.path.join(render_dir, f"depth_{i:03d}.png"))
+            panels = [rgb, gt_rgb, vis_lib.visualize_depth(depth)]
+            if gt_depth is not None:
+                panels.append(vis_lib.depth_error_map(depth, gt_depth / config.depth_scale))
+            image_lib.save_img_u8(vis_lib.side_by_side(*panels),
+                                  os.path.join(render_dir, f"summary_{i:03d}.png"))
     mean = {k: float(np.mean([m[k] for m in per_image])) for k in per_image[0]}
     mean["test_rays_per_sec"] = eval_rays / (time.perf_counter() - eval_t0)
     log_fn(json.dumps({"split": split, "mean": {k: round(v, 4) for k, v in mean.items()}}))

@@ -4,7 +4,10 @@ Port of the reference package's `train/metrics.py`: PSNR/MSE, SSIM (11-tap
 Gaussian window, separable, VALID region; skimage's convention), and the
 KITTI depth battery with predictions divided by the scene's `depth_scale`
 back to metres and clamped to [1e-3, 80 m]. `MetricSuite` takes host arrays
-and computes in float32 on the CPU. LPIPS is not ported yet.
+and computes PSNR, SSIM and the depth battery in float32 on the CPU; with
+`compute_lpips` it builds the VGG16 LPIPS of `train/lpips.py`, which
+computes on the suite's device and raises ValueError at construction when
+the weights file is missing or lacks the exporter's stamp.
 """
 
 from __future__ import annotations
@@ -16,12 +19,18 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from outdoor_nerf_depth_torch.train import lpips as lpips_lib
+
 DEPTH_CAP_M = 80.0
 DEPTH_FLOOR_M = 1e-3
 
 
 def mse_to_psnr(mse):
     return -10.0 / math.log(10.0) * torch.log(torch.as_tensor(mse))
+
+
+def psnr_to_mse(psnr):
+    return torch.exp(-0.1 * math.log(10.0) * torch.as_tensor(psnr))
 
 
 def psnr(pred, target):
@@ -91,12 +100,19 @@ def depth_metrics(pred, gt, depth_scale: float = 1.0, cap: float = DEPTH_CAP_M,
 
 
 class MetricSuite:
-    """PSNR/SSIM + depth metrics over full rendered images (host arrays)."""
+    """PSNR/SSIM(/LPIPS) + depth metrics over full rendered images (host arrays).
 
-    def __init__(self, compute_ssim: bool = True, compute_lpips: bool = False):
-        if compute_lpips:
-            raise NotImplementedError("LPIPS is not ported yet")
+    LPIPS runs on `device` (None means CUDA, raising without it); the weights
+    come from `lpips_weights` or the default path, and a missing or
+    unstamped file raises ValueError here, before any device is touched.
+    """
+
+    def __init__(self, compute_ssim: bool = True, compute_lpips: bool = False,
+                 lpips_weights: Optional[str] = None, device=None):
         self.compute_ssim = compute_ssim
+        self._lpips = None
+        if compute_lpips:
+            self._lpips = lpips_lib.make_lpips_fn(lpips_weights, device=device)
 
     def __call__(self, pred_rgb, gt_rgb, pred_depth=None, gt_depth=None, depth_scale=1.0):
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
@@ -104,6 +120,8 @@ class MetricSuite:
         out = {"psnr": float(psnr(pred_rgb, gt_rgb))}
         if self.compute_ssim:
             out["ssim"] = float(ssim(pred_rgb, gt_rgb))
+        if self._lpips is not None:
+            out["lpips"] = self._lpips(pred_rgb, gt_rgb)
         if pred_depth is not None and gt_depth is not None:
             out.update(
                 {k: float(v) for k, v in depth_metrics(t(pred_depth), t(gt_depth), depth_scale).items()}

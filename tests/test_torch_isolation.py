@@ -1,8 +1,11 @@
 """The port stands alone: it imports no module of the TPU package and no
 part of its framework stack, and no file of it names either. It imports no
 PIL, OpenCV or msgpack either (it reads and writes PNGs itself and saves
-weights with torch; none of them is on the GPU machine). `chip_smoke.py`
-imports none of them (it names the TPU kernels it replaces in its report)."""
+weights with torch; none of them is on the GPU machine), and matplotlib,
+imageio and tensorboard only where a function needs them, never when a
+module is imported (it carries the colormaps as tables; the video and the
+TensorBoard events are optional). `chip_smoke.py` imports none of them (it
+names the TPU kernels it replaces in its report)."""
 
 import ast
 import pathlib
@@ -30,7 +33,7 @@ def test_every_module_imports_without_the_reference_stack():
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'outdoor_nerf_depth_tpu', 'PIL',\n"
-        "             'cv2', 'msgpack'):\n"
+        "             'cv2', 'msgpack', 'matplotlib', 'imageio', 'tensorboard'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for mod in {_port_modules()!r}:\n"
@@ -92,6 +95,31 @@ def test_the_nerfpp_modules_are_checked(module):
 def test_the_prior_modules_are_checked(module):
     """The depth-prior slice's modules are among those the tests above
     import with the reference stack blocked and scan for its names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.utils.colormaps",
+    "outdoor_nerf_depth_torch.utils.image",
+    "outdoor_nerf_depth_torch.utils.vis",
+    "outdoor_nerf_depth_torch.utils.logging",
+    "outdoor_nerf_depth_torch.train.lpips",
+    "outdoor_nerf_depth_torch.train.metrics",
+    "outdoor_nerf_depth_torch.train.offline_eval",
+    "outdoor_nerf_depth_torch.train.loop",
+    "outdoor_nerf_depth_torch.data.cameras",
+    "outdoor_nerf_depth_torch.data.datasets",
+    "outdoor_nerf_depth_torch.tools.eval",
+    "outdoor_nerf_depth_torch.tools.render",
+    "outdoor_nerf_depth_torch.tools.quality_gate",
+    "outdoor_nerf_depth_torch.tools.sweep",
+])
+def test_the_eval_and_render_modules_are_checked(module):
+    """The eval and render slice's modules are among those the tests above
+    import with the reference stack, matplotlib, PIL, imageio and
+    tensorboard blocked, and scan for the reference's names."""
     assert module in _port_modules()
     path = REPO / (module.replace(".", "/") + ".py")
     assert not BANNED.search(path.read_text())
