@@ -112,6 +112,24 @@ non-zero without the final line:
               <= 0.10), mip and NeRF++ at a tenth of their 3,000 steps with
               their metrics reported; train and eval seconds, ms a step and the
               K1a, K1b and K2a launches of each (asserted)
+  cameras     copies of phase kitti's driving layout whose COLMAP camera is
+              rewritten as OPENCV and as OPENCV_FISHEYE: one batch of pixels
+              cast on the card against the CPU's cast (1e-5 of the largest
+              component), then the mip flagship at full width for 4 steps,
+              casting its pixels on the card; 3 K1a and 3 K1b a step
+  depth_losses mip, NGP and NeRF++ at full width on the kitti fixture under
+              the mse, urf and nll depth losses (8, 20 and 10 steps): finite
+              depth losses, the launches of each run (3 K1a + 3 K1b a mip
+              step, 1 + 1 + 16 K2a an NGP step, none for NeRF++), and each
+              loss's median step ms over mse's
+  blender     configs/blender_ngp.json at full width (hash grid L16 F2
+              T2^19, 128 samples, 512 candidates, batch 8192, white
+              background) on a Synthetic-NeRF-shaped layout written by
+              tools/make_blender_fixture.py (100 train and 4 test views of
+              800x800 RGBA, camera_angle_x 0.6911): write and load seconds,
+              300 steps of the config's schedule (past its 256 warmup steps;
+              1 K1a, 1 K1b and 16 K2a a step), ms a step and rays/s, and the
+              test views' PSNR (40 K1a a view)
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -124,6 +142,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -143,7 +162,9 @@ from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd  # noqa: E402
+from outdoor_nerf_depth_torch.data import cameras as cameras_lib  # noqa: E402
 from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
+from outdoor_nerf_depth_torch.tools import make_blender_fixture  # noqa: E402
 from outdoor_nerf_depth_torch.tools import eval as eval_tool  # noqa: E402
 from outdoor_nerf_depth_torch.tools import quality_gate  # noqa: E402
 from outdoor_nerf_depth_torch.tools import render as render_tool  # noqa: E402
@@ -256,6 +277,18 @@ LPIPS_RTOL = 1e-4
 # Phase gate: NGP at its full budget with its thresholds asserted; mip and
 # NeRF++ at a tenth of theirs (the thresholds belong to the full budget).
 GATE_RUNS = (("ngp", 1.0, True), ("mipnerf360", 0.1, False), ("nerfpp", 0.1, False))
+# Phase blender: configs/blender_ngp.json on a Synthetic-NeRF-shaped layout
+# (100 train and 4 test views of 800x800 RGBA), past the occupancy warmup.
+BLENDER_CONFIG = "configs/blender_ngp.json"
+BLENDER_TRAIN, BLENDER_TEST, BLENDER_SIZE, BLENDER_STEPS = 100, 4, 800, 300
+# Phase cameras: the kitti fixture with its camera rewritten with a lens.
+# The card's cast of a batch against the CPU's: the Newton inversion and
+# sin/cos round in other places on the card, a few float32 ulps of the
+# directions (~1): 1e-5 of their largest component.
+LENS_MODELS, LENS_STEPS, LENS_CAST_RTOL_OF_MAX = ("OPENCV", "OPENCV_FISHEYE"), 4, 1e-5
+# Phase depth_losses: each backend on the fixture under mse, urf and nll.
+DEPTH_LOSS_RUNS = (("mip", CONFIG, 8), ("ngp", NGP_CONFIG, 20), ("nerfpp", NERFPP_CONFIG, 10))
+DEPTH_LOSS_KINDS = ("mse", "urf", "nll")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -930,6 +963,11 @@ def _record_scan_shapes(shapes):
         prefix_scan.cumsum_cuda = launch
 
 
+def _ngp_launches(steps):
+    """An NGP train run: 1 K1a and 1 K1b a step, 16 K2a (one a hash level)."""
+    return _only(K1a=steps, K1b=steps, K2a=NGP_LEVELS * steps)
+
+
 def _occupied_share(model):
     grid = model.occupancy
     thresh = torch.clamp(occ_lib.mean_density(grid), max=model.density_threshold)
@@ -950,7 +988,7 @@ def phase_ngp_train(exp_dir):
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = _launches()
-    want = _only(K1a=NGP_STEPS, K1b=NGP_STEPS, K2a=NGP_LEVELS * NGP_STEPS)
+    want = _ngp_launches(NGP_STEPS)
     if launches != want:
         raise AssertionError(f"expected {want} launches in {NGP_STEPS} NGP steps, got {launches}")
     if scan_shapes != {SCAN_PATH}:
@@ -1136,7 +1174,7 @@ def phase_kitti(root):
     config = load_config(NGP_CONFIG, [f"scene_dir={scene}", f"exp_dir={os.path.join(root, 'ngp')}",
                                       f"max_steps={NGP_STEPS}", "print_every=1"])
     model, history, _, ngp = _kitti_run(
-        config, "kitti ngp", _only(K1a=NGP_STEPS, K1b=NGP_STEPS, K2a=NGP_LEVELS * NGP_STEPS),
+        config, "kitti ngp", _ngp_launches(NGP_STEPS),
         _only(K1a=chunks))
     _check_history(history, NGP_STEPS)
     out["ngp"] = dict(ngp, rm_s=history[-1]["rm_s"], vr_s=history[-1]["vr_s"],
@@ -1233,15 +1271,17 @@ def phase_nerfpp(root):
     return launches
 
 
-def _train_phase(config, dataset=None, scan_shapes=None):
-    """train() from scratch with the launch counts zeroed before it; returns
-    (model, history, launches, seconds, peak memory bytes)."""
+def _train_phase(config, dataset=None, scan_shapes=None, max_steps=None):
+    """train() from scratch with the launch counts zeroed before it, for
+    `max_steps` steps of the config's schedule when given; returns (model,
+    history, launches, seconds, peak memory bytes)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
     with _record_scan_shapes(scan_shapes if scan_shapes is not None else set()):
-        model, history = train(config, device="cuda", dataset=dataset, log_fn=lambda line: None)
+        model, history = train(config, device="cuda", dataset=dataset, log_fn=lambda line: None,
+                               max_steps=max_steps)
     torch.cuda.synchronize()
     return (model, history, _launches(), time.perf_counter() - t0,
             torch.cuda.max_memory_allocated())
@@ -1355,7 +1395,7 @@ def phase_bf16_synthetic(train_ms_f32):
         config = _ngp_config(exp_dir).replace(compute_dtype="bfloat16")
         model, history, counted, seconds, peak = _train_phase(
             config, _scene(config, "train", 0), scan_shapes)
-    want = _only(K1a=NGP_STEPS, K1b=NGP_STEPS, K2a=NGP_LEVELS * NGP_STEPS)
+    want = _ngp_launches(NGP_STEPS)
     if counted != want or scan_shapes != {SCAN_PATH}:
         raise AssertionError(f"bf16 NGP: expected {want} at {SCAN_PATH}, got {counted} at "
                              f"{scan_shapes}")
@@ -1985,6 +2025,186 @@ def phase_gate():
     return launches
 
 
+def phase_blender():
+    """configs/blender_ngp.json at full width on a Synthetic-NeRF-shaped
+    layout: write, load, train past the occupancy warmup, evaluate the test
+    views; launches per step and per render chunk asserted."""
+    with tempfile.TemporaryDirectory() as root:
+        scene = os.path.join(root, "blender")
+        t0 = time.perf_counter()
+        _quiet(make_blender_fixture.main, scene, BLENDER_TRAIN, BLENDER_TEST, BLENDER_SIZE)
+        write_seconds = time.perf_counter() - t0
+        config = load_config(BLENDER_CONFIG, [f"scene_dir={scene}", "print_every=1",
+                                              f"exp_dir={os.path.join(root, 'exp')}"])
+        mp, fp = config.model_params, config.model_params["field_params"]
+        expected = (config.dataset, mp["scale"], mp["max_samples"], mp["n_candidates"],
+                    mp.get("sample_budget", 0), tuple(mp["bg_intensity_range"]), fp["n_levels"],
+                    fp["n_features"], fp["log2_table_size"], fp["hidden_width"],
+                    config.batch_size, config.occupancy_warmup_steps, config.opacity_loss_mult)
+        if expected != ("blender", 0.5, 128, 512, 0, (1.0, 1.0), NGP_LEVELS, 2, 19, 64, 8192,
+                        256, 1e-3):
+            raise AssertionError(f"{BLENDER_CONFIG} is no longer the full-width NGP shape: "
+                                 f"{expected}")
+        t0 = time.perf_counter()
+        dataset = build_dataset(config, "train")
+        load_seconds = time.perf_counter() - t0
+        if (dataset.n_images, dataset.height, dataset.width) != (
+                BLENDER_TRAIN, BLENDER_SIZE, BLENDER_SIZE):
+            raise AssertionError(f"loaded {dataset.n_images} views of "
+                                 f"{dataset.height}x{dataset.width}")
+        scan_shapes = set()
+        model, history, launches, seconds, peak = _train_phase(config, dataset, scan_shapes,
+                                                               max_steps=BLENDER_STEPS)
+        if launches != _ngp_launches(BLENDER_STEPS):
+            raise AssertionError(f"blender: launches {launches}, expected "
+                                 f"{_ngp_launches(BLENDER_STEPS)}")
+        # No sample budget: K2a scans every slot of the batch, a shape the
+        # kernel is held at in phase kernels.
+        scan_path = (ngp_points(model, config.batch_size), SCAN_PATH[1])
+        if scan_shapes != {scan_path} or scan_path not in SCAN_SHAPES:
+            raise AssertionError(f"blender: K2a ran at {scan_shapes}, expected only {scan_path}")
+        _check_history(history, BLENDER_STEPS)
+        step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
+        refresh = set(range(0, BLENDER_STEPS, config.occupancy_update_every))
+        plain = [ms for i, ms in enumerate(step_ms) if i > 0 and i not in refresh]
+        warm = [ms for i, ms in enumerate(step_ms)
+                if i >= config.occupancy_warmup_steps and i not in refresh]
+        steady = statistics.median(plain)
+        del dataset
+        _reset_launches()
+        t0 = time.perf_counter()
+        mean, per_image = evaluate(config, model, device="cuda", log_fn=lambda line: None)
+        eval_seconds = time.perf_counter() - t0
+        chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
+        eval_launches = _launches()
+        if eval_launches != _only(K1a=chunks):
+            raise AssertionError(f"blender eval: launches {eval_launches}, expected {chunks} K1a")
+        if len(per_image) != BLENDER_TEST or not all(
+                math.isfinite(mean[k]) for k in ("psnr", "ssim")):
+            raise AssertionError(f"blender eval: {len(per_image)} views, {mean}")
+        emit({"phase": "blender", "config": BLENDER_CONFIG,
+              "scene": f"Synthetic-NeRF layout, {BLENDER_TRAIN} train and {BLENDER_TEST} test "
+                       f"views of {BLENDER_SIZE}x{BLENDER_SIZE} RGBA, 8 analytic spheres",
+              "cuts": "none of views or resolution; 300 of the config's 30,000 steps (its LR "
+                      "schedule kept), past occupancy_warmup_steps 256",
+              "write_seconds": write_seconds, "load_seconds": load_seconds,
+              "steps": BLENDER_STEPS, "train_seconds": seconds, "batch": config.batch_size,
+              "field_points_per_step": ngp_points(model, config.batch_size),
+              "step_ms": step_ms, "median_step_ms_without_refresh": steady,
+              "median_step_ms_after_warmup": statistics.median(warm),
+              "rays_per_sec": 1e3 * config.batch_size / steady,
+              "rm_s": history[-1]["rm_s"], "vr_s": history[-1]["vr_s"],
+              "train_psnr_last": history[-1]["psnr"],
+              "occupied_share": _occupied_share(model),
+              "max_memory_allocated_bytes": peak, "launches": launches,
+              "k2a_shapes": sorted(scan_shapes),
+              "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+              "eval": {"views": len(per_image), "seconds": eval_seconds,
+                       "launches": eval_launches, "psnr": mean["psnr"], "ssim": mean["ssim"],
+                       "per_image_psnr": [m["psnr"] for m in per_image]},
+              "verdict": "none: no reference number exists for this scene"})
+    del model
+    torch.cuda.empty_cache()
+    return {"blender": launches, "blender_eval": eval_launches}
+
+
+def phase_cameras(root):
+    """Copies of the kitti fixture whose COLMAP camera is rewritten with a
+    lens (OPENCV, OPENCV_FISHEYE): the card's cast of a batch against the
+    CPU's, then the mip flagship at full width for a few steps, casting its
+    pixels on the card; 3 K1a and 3 K1b a step."""
+    out = {"phase": "cameras", "models": {}}
+    launches = {}
+    for model_name in LENS_MODELS:
+        scene = os.path.join(root, f"lens_{model_name.lower()}")
+        shutil.copytree(os.path.join(root, "dtu_format"), scene)
+        make_kitti_fixture.rewrite_camera(scene, model_name)
+        config = load_config(CONFIG, [f"scene_dir={scene}", f"max_steps={LENS_STEPS}",
+                                      "print_every=1", f"exp_dir={scene}_exp"])
+        dataset = build_dataset(config, "train")
+        if dataset.distortion is None or (dataset.camtype == "fisheye") != (
+                model_name == "OPENCV_FISHEYE") or not config.cast_rays_in_train_step:
+            raise AssertionError(f"{model_name}: {dataset.distortion}, {dataset.camtype}")
+        pixels = dataset.sample_batch().rays
+        if not isinstance(pixels, rays_lib.Pixels):
+            raise AssertionError(f"{model_name}: train batches should hold pixels")
+        card = cameras_lib.cast_pixels(rays_lib.map_fields(lambda x: x.cuda(), pixels),
+                                       dataset.cameras_on("cuda"), dataset.camtype)
+        host = cameras_lib.cast_pixels(pixels, dataset.cameras_on("cpu"), dataset.camtype)
+        errors = {}
+        for name in ("origins", "directions", "viewdirs", "radii", "imageplane"):
+            got, want = getattr(card, name).cpu(), getattr(host, name)
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{model_name}: non-finite {name} cast on the card")
+            errors[name] = float((got - want).abs().max())
+            # Radii are distances between neighbouring directions: their scale.
+            scale = float(host.directions.abs().max() if name == "radii" else want.abs().max())
+            if errors[name] > LENS_CAST_RTOL_OF_MAX * scale:
+                raise AssertionError(f"{model_name}: {name} cast on the card off the CPU's "
+                                     f"by {errors[name]} (scale {scale})")
+        plain = cameras_lib.cast_pixels(pixels, (*dataset.cameras_on("cpu")[:2], None))
+        lens_shift = float((plain.directions - host.directions).abs().max())
+        model, history, run_launches, seconds, _ = _train_phase(config, dataset,
+                                                                max_steps=LENS_STEPS)
+        if run_launches != _only(K1a=3 * LENS_STEPS, K1b=3 * LENS_STEPS):
+            raise AssertionError(f"{model_name}: launches {run_launches}")
+        _check_history(history, LENS_STEPS)
+        launches[f"cameras_{model_name.lower()}"] = run_launches
+        out["models"][model_name] = {
+            "distortion": {k: float(v) for k, v in dataset.distortion.items()},
+            "camtype": dataset.camtype, "cast_max_abs_err_card_vs_cpu": errors,
+            "cast_tolerance": f"{LENS_CAST_RTOL_OF_MAX} of the largest component",
+            "lens_shift_of_directions": lens_shift, "steps": LENS_STEPS, "seconds": seconds,
+            "step_ms": [1e3 * config.batch_size / e["rays_per_sec"] for e in history],
+            "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+            "launches": run_launches}
+        del model, dataset
+        torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
+def phase_depth_losses(root):
+    """mip, NGP and NeRF++ at full width on the kitti fixture under the mse,
+    urf and nll depth losses: finite losses, K1 and K2a launches per step,
+    and each loss's median step ms beside mse's."""
+    out = {"phase": "depth_losses", "runs": {}}
+    launches = {}
+    for backend, config_path, steps in DEPTH_LOSS_RUNS:
+        scene = os.path.join(root, "nerfpp" if backend == "nerfpp" else "dtu_format")
+        for kind in DEPTH_LOSS_KINDS:
+            exp = os.path.join(root, f"loss_{backend}_{kind}")
+            config = load_config(config_path, [f"scene_dir={scene}", f"exp_dir={exp}",
+                                               f"max_steps={steps}", "print_every=1",
+                                               f"depth_loss_type={kind}"])
+            if config.lambda_depth <= 0:
+                raise AssertionError(f"{config_path}: no depth supervision")
+            model, history, run_launches, seconds, _ = _train_phase(config)
+            want = {"mip": _only(K1a=3 * steps, K1b=3 * steps), "ngp": _ngp_launches(steps),
+                    "nerfpp": _only()}[backend]
+            if run_launches != want:
+                raise AssertionError(f"{backend} {kind}: launches {run_launches}, expected {want}")
+            _check_history(history, steps)
+            if not all(math.isfinite(e["loss_depth"]) for e in history):
+                raise AssertionError(f"{backend} {kind}: non-finite depth loss")
+            step_ms, steady = _steady_ms(config, history)
+            launches[f"depth_losses_{backend}_{kind}"] = run_launches
+            out["runs"][f"{backend}_{kind}"] = {
+                "config": config_path, "steps": steps, "seconds": seconds,
+                "depth_sigma": config.depth_sigma, "lambda_depth": config.lambda_depth,
+                "step_ms": step_ms, "median_step_ms_after_first": steady,
+                "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+                "launches": run_launches}
+            del model
+            torch.cuda.empty_cache()
+        base = out["runs"][f"{backend}_mse"]["median_step_ms_after_first"]
+        for kind in DEPTH_LOSS_KINDS[1:]:
+            run = out["runs"][f"{backend}_{kind}"]
+            run["step_ms_over_mse"] = run["median_step_ms_after_first"] / base
+    emit(out)
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -1997,19 +2217,23 @@ def summary(k, launches):
 
     ngp = f"{NGP_K1_SHAPE[0]}x{NGP_K1_SHAPE[1]}"
     def on_path(kernel):
-        return sum(launches[p][kernel] for p in ("train", "ngp_train", "kitti_mip",
-                                                 "kitti_mip_resumed", "kitti_ngp", "nerfpp",
-                                                 "bf16_mip16k", "bf16_flagship", "bf16_ngp",
-                                                 "bf16_nerfpp", "priors_mip", "eval_render",
-                                                 "gate_ngp", "gate_mipnerf360", "gate_nerfpp"))
+        main_path = ("train", "ngp_train", "kitti_mip", "kitti_mip_resumed", "kitti_ngp", "nerfpp",
+                     "bf16_mip16k", "bf16_flagship", "bf16_ngp", "bf16_nerfpp", "priors_mip",
+                     "eval_render", "gate_ngp", "gate_mipnerf360", "gate_nerfpp", "blender",
+                     "blender_eval")
+        return sum(counts[kernel] for p, counts in launches.items()
+                   if p in main_path or p.startswith(("cameras_", "depth_losses_")))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
           "launches_note": "mip and NGP train runs on the synthetic scene and the KITTI fixture, "
                            "float32 and bf16 (the 16k remat run launches K1a twice a level), "
                            "mip on the port's own completion prior (phase priors), the tools' "
-                           "test-view and camera-path renders (phase eval_render) and the "
-                           "quality gate's mip and NGP runs (phase gate)"}
+                           "test-view and camera-path renders (phase eval_render), the "
+                           "quality gate's mip and NGP runs (phase gate), mip on lens-distorted "
+                           "and fisheye cameras (phase cameras), mip and NGP under the mse, urf "
+                           "and nll depth losses (phase depth_losses) and NGP on the Blender "
+                           "layout, trained and evaluated (phase blender)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     kernels = [
         dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
@@ -2038,7 +2262,9 @@ def summary(k, launches):
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:64",
          "launches": on_path("K2a"), "launches_by_phase": by_phase("K2a"),
          "launches_note": "NGP train runs on the synthetic scene and the KITTI fixture, "
-                          "float32 and bf16, and the NGP quality gate (phase gate)",
+                          "float32 and bf16, the NGP quality gate (phase gate), NGP under the "
+                          "mse, urf and nll depth losses (phase depth_losses) and on the "
+                          "Blender layout (phase blender)",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
          "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                     for e in k["bf16_errors"].values()),
@@ -2109,8 +2335,11 @@ def main():
         launches.update(phase_bf16_synthetic(train_ms_f32))
         launches.update(phase_priors(root))
         launches.update(phase_eval_render(root, kitti_mip_eval))
+        launches.update(phase_cameras(root))
+        launches.update(phase_depth_losses(root))
     launches.update(phase_lpips())
     launches.update(phase_gate())
+    launches.update(phase_blender())
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,12 +9,14 @@ the cast of pixels to rays in torch, on whichever device the tensors live
 reference's numpy cast, kept bit for bit for the scene tracer of fixtures.
 The render paths (`generate_ellipse_path`, `generate_spiral_path`,
 `generate_spline_path`, around `focus_point`) are the reference's numpy.
-Perspective cameras without lens distortion only; fisheye and distortion
-raise NotImplementedError.
+The cast takes perspective and fisheye cameras, with or without the OpenCV
+radial (k1..k4) and tangential (p1, p2) lens distortion, which it inverts
+by Newton steps.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -69,20 +71,60 @@ def ray_origins_and_viewdirs_np(pix_x, pix_y, pixtocams, camtoworlds):
     return origins, directions / np.linalg.norm(directions, axis=-1, keepdims=True)
 
 
+def _undistort(xd, yd, dist, iters: int = 10):
+    """Invert the OpenCV radial (k1..k4) / tangential (p1, p2) model by Newton
+    steps; a step is taken only where the Jacobian's |det| > 1e-9."""
+    k1 = dist.get("k1", 0.0)
+    k2 = dist.get("k2", 0.0)
+    k3 = dist.get("k3", 0.0)
+    k4 = dist.get("k4", 0.0)
+    p1 = dist.get("p1", 0.0)
+    p2 = dist.get("p2", 0.0)
+    x, y = xd, yd
+    for _ in range(iters):
+        r = x * x + y * y
+        d = 1.0 + r * (k1 + r * (k2 + r * (k3 + r * k4)))
+        fx = d * x + 2 * p1 * x * y + p2 * (r + 2 * x * x) - xd
+        fy = d * y + 2 * p2 * x * y + p1 * (r + 2 * y * y) - yd
+        d_r = k1 + r * (2 * k2 + r * (3 * k3 + r * 4 * k4))
+        fx_x = d + 2 * x * x * d_r + 2 * p1 * y + 6 * p2 * x
+        fx_y = 2 * x * y * d_r + 2 * p1 * x + 2 * p2 * y
+        fy_x = 2 * x * y * d_r + 2 * p2 * y + 2 * p1 * x
+        fy_y = d + 2 * y * y * d_r + 2 * p2 * x + 6 * p1 * y
+        det = fy_x * fx_y - fx_x * fy_y
+        safe = torch.abs(det) > 1e-9
+        x = x + torch.where(safe, (fx * fy_y - fy * fx_y) / det, 0.0)
+        y = y + torch.where(safe, (fy * fx_x - fx * fy_x) / det, 0.0)
+    return x, y
+
+
 def pixels_to_rays(pix_x, pix_y, pixtocams, camtoworlds, distortion=None, camtype="perspective"):
     """Cast rays through pixel centers, with mip-NeRF cone radii.
 
     Vectorized over leading dims of pix_x/pix_y; pixtocams [.., 3, 3] and
-    camtoworlds [.., 3, 4] broadcast against them. Returns (origins,
-    directions, viewdirs, radii, imageplane).
+    camtoworlds [.., 3, 4] broadcast against them. `distortion` is a dict of
+    k1..k4, p1, p2 (missing keys are 0) or None; `camtype` "fisheye" takes
+    the equidistant map theta = |xy| (capped at pi), any other value is a
+    perspective camera. Returns
+    (origins, directions, viewdirs, radii, imageplane).
+
+    Like the reference, the fisheye map divides by theta unguarded: a pixel
+    centre exactly on the principal point gives NaN rays.
     """
-    if distortion is not None or camtype != "perspective":
-        raise NotImplementedError("only undistorted perspective cameras are ported")
     mk = lambda x, y: torch.stack([x + 0.5, y + 0.5, torch.ones_like(x)], dim=-1)
     trio = torch.stack([mk(pix_x, pix_y), mk(pix_x + 1, pix_y), mk(pix_x, pix_y + 1)])
     mat_vec = lambda a, v: (a @ v[..., None])[..., 0]
 
     cam_dirs = mat_vec(pixtocams, trio)
+    if distortion is not None:
+        ux, uy = _undistort(cam_dirs[..., 0], cam_dirs[..., 1], distortion)
+        cam_dirs = torch.stack([ux, uy, torch.ones_like(ux)], dim=-1)
+    if camtype == "fisheye":
+        theta = torch.clamp(torch.sqrt(torch.sum(torch.square(cam_dirs[..., :2]), dim=-1)),
+                            max=math.pi)
+        sinc = torch.sin(theta) / theta
+        cam_dirs = torch.stack(
+            [cam_dirs[..., 0] * sinc, cam_dirs[..., 1] * sinc, torch.cos(theta)], dim=-1)
     flip = torch.as_tensor(_OPENCV_TO_OPENGL3, dtype=cam_dirs.dtype, device=cam_dirs.device)
     cam_dirs = cam_dirs @ flip
     imageplane = cam_dirs[0, ..., :2]

@@ -1,18 +1,24 @@
 """Ray datasets, the driving-scene loader and the prefetching batcher.
 
-Port of `RayDataset`, `SyntheticDataset`, `SphereSceneDataset`,
-`DrivingSceneDataset`, `NerfppSceneDataset`, `PrefetchIterator` and the helpers they use (`load_image`,
-`decode_depth_png`, `split_indices`, `trace_sphere_scene`) from the
-reference package's `data/datasets.py`, for one process. Images and random
+Port of the reference package's `data/datasets.py`, for one process:
+`RayDataset`, `PrefetchIterator`, the in-memory `SyntheticDataset` and
+`SphereSceneDataset`, the driving-scene and NeRF++ layouts
+(`DrivingSceneDataset`, `NerfppSceneDataset`), and the public scene
+readers `BlenderDataset`, `TanksAndTemplesDataset`,
+`TanksAndTemplesFVSDataset`, `DTUDataset`, `NSVFDataset` and `RTMVDataset`,
+with the helpers they use (`load_image`, `decode_depth_png`,
+`split_indices`, `trace_sphere_scene`, `decompose_projection`). Images and random
 draws stay in numpy with the same RNG streams, so a seed gives the same
 batches as the reference; batches come out as dataclasses of CPU tensors.
 Train batches carry `Pixels` (cast to rays on the GPU inside the step); eval
 batches are cast on the host. PNGs are read with the port's own codec
-(`data/png.py`).
+(`data/png.py`); a JPEG input (the Free View Synthesis layout allows
+`im_*.jpg`) raises ValueError.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
@@ -407,8 +413,9 @@ class DrivingSceneDataset(RayDataset):
                                            also spelled depths_<factor>_<sup_type>)
 
     Poses are PCA-normalized; the normalization's scale multiplies every
-    depth and, with `auto_adjust_near_far`, near and far. Distorted and
-    fisheye cameras load, and raise where their rays are cast.
+    depth and, with `auto_adjust_near_far`, near and far. A COLMAP camera's
+    lens distortion and fisheye model (SIMPLE_RADIAL, RADIAL, OPENCV,
+    OPENCV_FISHEYE) go with the cameras to every ray cast.
     """
 
     def __init__(
@@ -502,7 +509,8 @@ class NerfppSceneDataset(RayDataset):
     depth_<sup_type>/, min_depth/, max_depth.txt, and scene_dir/scale.
     Depths are raw / 256 * scale, min-depth PNGs raw / 255 * max_depth.
     Poses come in OpenCV axes and are flipped to OpenGL for the caster.
-    `skip` keeps every skip-th view.
+    `skip` keeps every skip-th view; `max_depth_default` scales the min-depth
+    maps of a split without max_depth.txt.
     """
 
     def __init__(
@@ -512,6 +520,7 @@ class NerfppSceneDataset(RayDataset):
         global_batch_size: int,
         skip: int = 1,
         depth_sup_type: str = "gt",
+        max_depth_default: float = 100.0,
         cast_on_device: bool = True,
     ):
         super().__init__(split, global_batch_size, cast_on_device)
@@ -552,7 +561,7 @@ class NerfppSceneDataset(RayDataset):
         self.depth_sup = load_depths(
             "depth" if depth_sup_type == "gt" else f"depth_{depth_sup_type}")
 
-        max_depth = 100.0  # without max_depth.txt
+        max_depth = max_depth_default  # without max_depth.txt
         max_depth_file = os.path.join(split_dir, "max_depth.txt")
         if os.path.exists(max_depth_file):
             with open(max_depth_file) as f:
@@ -563,4 +572,301 @@ class NerfppSceneDataset(RayDataset):
                  for f in files("min_depth")]
             ).astype(np.float32)
         self.near, self.far = 1e-4, 2.0  # unit-sphere scene: fg far ~ sphere exit
+        self._finalize()
+
+
+def _composite(img: np.ndarray, background: float) -> np.ndarray:
+    """An RGBA image over a constant background; RGB and grey pass through."""
+    if img.ndim == 3 and img.shape[-1] == 4:
+        a = img[..., 3:]
+        img = img[..., :3] * a + (1.0 - a) * background
+    return img
+
+
+class BlenderDataset(RayDataset):
+    """Blender / NGP `transforms_{split}.json` synthetic scenes.
+
+    RGBA images composited over white (or black), the focal from
+    `camera_angle_x`, camera-to-world matrices already in OpenGL axes.
+    """
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        near: float = 2.0,
+        far: float = 6.0,
+        white_background: bool = True,
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        with open(os.path.join(scene_dir, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+
+        images, poses = [], []
+        for frame in meta["frames"]:
+            path = os.path.join(scene_dir, frame["file_path"])
+            if not os.path.splitext(path)[1]:
+                path += ".png"
+            img = load_image(path) / 255.0
+            images.append(_composite(img, 1.0 if white_background else 0.0).astype(np.float32))
+            poses.append(np.asarray(frame["transform_matrix"])[:3, :4])
+        self.images = np.stack(images)
+        self.camtoworlds = np.stack(poses).astype(np.float32)
+
+        h, w = self.images.shape[1:3]
+        focal = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
+        self.pixtocams = cameras_lib.pinhole_pixtocam(focal, w, h).astype(np.float32)
+        self.near, self.far = near, far
+        self._finalize()
+
+
+class TanksAndTemplesDataset(NerfppSceneDataset):
+    """Tanks and Temples as processed by NeRF++: the same per-image txt
+    layout (`{split}/{intrinsics,pose,rgb}`, cameras in the unit sphere), so
+    `NerfppSceneDataset`'s reader and bounds apply unchanged."""
+
+
+class TanksAndTemplesFVSDataset(RayDataset):
+    """Tanks and Temples as processed by Free View Synthesis.
+
+    scene_dir/dense/ibr3d_*/{im_*.png, Ks.npy, Rs.npy, ts.npy}: the ibr3d_*
+    directories are a resolution pyramid (sorted descending), and `factor`
+    picks a level. Poses are COLMAP world-to-camera (Ks/Rs/ts), inverted,
+    flipped to OpenGL and PCA-normalized; near and far scale with the
+    normalization. Every `llffhold`-th image is test.
+    """
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        factor: int = 0,
+        llffhold: int = 8,
+        near: float = 0.01,
+        far: float = 10.0,
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        basedir = os.path.join(scene_dir, "dense")
+        sizes = sorted(f for f in os.listdir(basedir) if f.startswith("ibr3d"))[::-1]
+        if factor >= len(sizes):
+            raise ValueError(f"factor {factor} >= {len(sizes)} pyramid levels")
+        basedir = os.path.join(basedir, sizes[factor])
+
+        files = sorted(f for f in os.listdir(basedir) if f.startswith("im_"))
+        images = np.stack([load_image(os.path.join(basedir, f)) for f in files])
+        Ks = np.load(os.path.join(basedir, "Ks.npy"))
+        Rs = np.load(os.path.join(basedir, "Rs.npy"))
+        ts = np.load(os.path.join(basedir, "ts.npy"))
+
+        # world-to-camera -> camera-to-world, then OpenCV -> OpenGL columns.
+        w2c = np.concatenate([Rs, ts[..., None]], axis=-1)
+        bottom = np.tile(np.array([[[0.0, 0, 0, 1]]]), (len(w2c), 1, 1))
+        c2w = np.linalg.inv(np.concatenate([w2c, bottom], axis=1))[:, :3, :4]
+        c2w = c2w @ np.diag([1.0, -1.0, -1.0, 1.0])
+        poses, transform = cameras_lib.normalize_poses_pca(c2w)
+        self.scene_scale = cameras_lib.pose_scale(transform)
+
+        idx = np.arange(len(files))
+        idx = idx[idx % llffhold == 0] if split == "test" else idx[idx % llffhold != 0]
+        self.images = (images[idx] / 255.0).astype(np.float32)
+        self.camtoworlds = poses[idx].astype(np.float32)
+        self.pixtocams = np.linalg.inv(Ks[idx].astype(np.float32))
+        self.near, self.far = near * self.scene_scale, far * self.scene_scale
+        self._finalize()
+
+
+def decompose_projection(P: np.ndarray):
+    """Split a 3x4 projection into (K, R, camera_center) by an RQ
+    decomposition: K normalized to K[2,2] = 1 with a positive diagonal, R
+    world-to-camera."""
+    import scipy.linalg
+
+    M = P[:, :3]
+    K, R = scipy.linalg.rq(M)
+    # RQ is unique only up to signs: make K's diagonal positive.
+    signs = np.sign(np.diag(K))
+    signs[signs == 0] = 1.0
+    K = K * signs[None, :]
+    R = R * signs[:, None]
+    if np.linalg.det(R) < 0:
+        K, R = -K, -R
+    t = np.linalg.solve(K, P[:, 3])
+    center = -R.T @ t
+    return K / K[2, 2], R, center
+
+
+class DTUDataset(RayDataset):
+    """DTU MVS scans.
+
+    The scan directory holds `rect_{i:03d}_{light}.png` (light
+    `{cond}_r5000` / `_r7000`, or `max` when `light_cond` is 7) and the
+    projection matrices `../../cal18/pos_{i:03d}.txt` (or a local `cal18/`).
+    Poses are recentered, scaled by the largest |xyz| and flipped to
+    OpenGL. Every `dtuhold`-th image is test.
+    """
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        light_cond: int = 7,
+        dtuhold: int = 8,
+        near: float = 0.1,
+        far: float = 5.0,
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        if light_cond < 7:
+            n_images = len([f for f in os.listdir(scene_dir) if f.startswith("rect_")]) // 8
+        else:
+            n_images = len([f for f in os.listdir(scene_dir) if f.endswith("_max.png")])
+        cal_dir = os.path.join(scene_dir, "../../cal18")
+        if not os.path.isdir(cal_dir):
+            cal_dir = os.path.join(scene_dir, "cal18")
+
+        images, pixtocams, camtoworlds = [], [], []
+        for i in range(1, n_images + 1):
+            if light_cond < 7:
+                light = f"{light_cond}_r" + ("5000" if i < 50 else "7000")
+            else:
+                light = "max"
+            images.append(load_image(os.path.join(scene_dir, f"rect_{i:03d}_{light}.png")) / 255.0)
+            P = np.loadtxt(os.path.join(cal_dir, f"pos_{i:03d}.txt")).reshape(3, 4)
+            K, R, center = decompose_projection(P)
+            camtoworlds.append(np.concatenate([R.T, center[:, None]], axis=1))
+            pixtocams.append(np.linalg.inv(K))
+
+        camtoworlds = np.stack(camtoworlds)
+        camtoworlds, _ = cameras_lib.recenter_poses(camtoworlds)
+        camtoworlds[:, :3, 3] /= np.max(np.abs(camtoworlds[:, :3, 3]))
+        camtoworlds = camtoworlds @ np.diag([1.0, -1.0, -1.0, 1.0])
+
+        idx = np.arange(n_images)
+        idx = idx[idx % dtuhold == 0] if split == "test" else idx[idx % dtuhold != 0]
+        self.images = np.stack(images)[idx].astype(np.float32)
+        self.camtoworlds = camtoworlds[idx].astype(np.float32)
+        self.pixtocams = np.stack(pixtocams)[idx].astype(np.float32)
+        self.near, self.far = near, far
+        self._finalize()
+
+
+class NSVFDataset(RayDataset):
+    """NSVF-format scenes.
+
+    scene_dir/{intrinsics.txt, bbox.txt, rgb/<p>_*.png, pose/<p>_*.txt},
+    where the file prefix names the split (0_ train, 1_ val and test, 2_ the
+    synthetic scenes' test). Poses are camera-to-world in OpenCV axes; the
+    camera centres are shifted and scaled so the bbox fits in [-0.5, 0.5]^3
+    (the NGP AABB).
+    """
+
+    _PREFIX = {"train": "0_", "val": "1_", "test": "1_", "test_synthetic": "2_"}
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        near: float = 0.01,
+        far: float = 4.0,
+        white_background: bool = True,
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        K_raw = np.loadtxt(os.path.join(scene_dir, "intrinsics.txt"))
+        bbox = np.loadtxt(os.path.join(scene_dir, "bbox.txt")).reshape(-1)[:6]
+        xyz_min, xyz_max = bbox[:3], bbox[3:6]
+        self.shift = (xyz_max + xyz_min) / 2
+        self.scale = float((xyz_max - xyz_min).max() / 2 * 1.05)
+
+        prefix = self._PREFIX.get(split)
+        if prefix is None:
+            raise ValueError(f"unknown NSVF split {split!r}")
+        rgb_dir = os.path.join(scene_dir, "rgb")
+        pose_dir = os.path.join(scene_dir, "pose")
+        files = sorted(f for f in os.listdir(rgb_dir) if f.startswith(prefix))
+        pose_files = sorted(f for f in os.listdir(pose_dir) if f.startswith(prefix))
+        if not files:
+            # Synthetic scenes name their test split with prefix 2_.
+            files = sorted(f for f in os.listdir(rgb_dir) if f.startswith("2_"))
+            pose_files = sorted(f for f in os.listdir(pose_dir) if f.startswith("2_"))
+
+        images, poses = [], []
+        flip = np.diag([1.0, -1.0, -1.0])
+        for rgb_f, pose_f in zip(files, pose_files):
+            img = load_image(os.path.join(rgb_dir, rgb_f)) / 255.0
+            images.append(_composite(img, 1.0 if white_background else 0.0).astype(np.float32))
+            c2w = np.loadtxt(os.path.join(pose_dir, pose_f)).reshape(4, 4)[:3].copy()
+            c2w[:, 3] = (c2w[:, 3] - self.shift) / (2 * self.scale)
+            poses.append(np.concatenate([c2w[:, :3] @ flip, c2w[:, 3:4]], -1))
+        self.images = np.stack(images)
+        self.camtoworlds = np.stack(poses).astype(np.float32)
+
+        h, w = self.images.shape[1:3]
+        if K_raw.ndim == 0 or K_raw.size == 1:
+            K = np.array([[float(K_raw), 0, w / 2], [0, float(K_raw), h / 2], [0, 0, 1]])
+        else:
+            K = K_raw.reshape(-1)[:9].reshape(3, 3)
+        self.pixtocams = np.linalg.inv(K).astype(np.float32)
+        self.near, self.far = near, far
+        self._finalize()
+
+
+class RTMVDataset(RayDataset):
+    """RTMV synthetic scenes.
+
+    scene_dir/{NNNNN.json, images/NNNNN.png}: each frame's json holds the
+    intrinsics, `cam2world` (column-major) and the scene's 3D box. Splits
+    are index ranges: train 0-100, trainval 0-105, test 105-150, all.
+    With `normalize_box` the camera centres are shifted and scaled so the
+    box fits in [-0.5, 0.5]^3.
+    """
+
+    _RANGES = {"train": (0, 100), "trainval": (0, 105), "test": (105, 150), "all": (0, None)}
+
+    def __init__(
+        self,
+        scene_dir: str,
+        split: str,
+        global_batch_size: int,
+        near: float = 0.01,
+        far: float = 4.0,
+        normalize_box: bool = True,
+        cast_on_device: bool = True,
+    ):
+        super().__init__(split, global_batch_size, cast_on_device)
+        jsons = sorted(f for f in os.listdir(scene_dir) if f.endswith(".json"))
+        img_dir = os.path.join(scene_dir, "images")
+        img_files = sorted(os.listdir(img_dir))
+        lo, hi = self._RANGES.get(split, (0, None))
+        jsons, img_files = jsons[lo:hi], img_files[lo:hi]
+
+        with open(os.path.join(scene_dir, jsons[0])) as f:
+            meta = json.load(f)["camera_data"]
+        self.shift = np.asarray(meta["scene_center_3d_box"], np.float64)
+        self.scale = float((np.asarray(meta["scene_max_3d_box"])
+                            - np.asarray(meta["scene_min_3d_box"])).max() / 2 * 1.05)
+        intr = meta["intrinsics"]
+        K = np.array([[intr["fx"], 0, intr["cx"]], [0, intr["fy"], intr["cy"]], [0, 0, 1]])
+        self.pixtocams = np.linalg.inv(K).astype(np.float32)
+
+        images, poses = [], []
+        for jf, imf in zip(jsons, img_files):
+            with open(os.path.join(scene_dir, jf)) as f:
+                cam = json.load(f)["camera_data"]
+            c2w = np.asarray(cam["cam2world"]).T[:3].copy()
+            c2w[:, 1:3] *= -1  # OpenCV -> OpenGL
+            if normalize_box:
+                c2w[:, 3] = (c2w[:, 3] - self.shift) / (2 * self.scale)
+            poses.append(c2w)
+            img = load_image(os.path.join(img_dir, imf)) / 255.0
+            images.append(_composite(img, 1.0).astype(np.float32))
+        self.images = np.stack(images)
+        self.camtoworlds = np.stack(poses).astype(np.float32)
+        self.near, self.far = near, far
         self._finalize()

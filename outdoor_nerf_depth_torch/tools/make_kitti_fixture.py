@@ -23,6 +23,10 @@ files. PNGs go through the port's own codec (filter 0 on every row). Then:
 
     python -m outdoor_nerf_depth_torch --config configs/kitti_ngp.json \\
         scene_dir=<out>/dtu_format max_steps=...
+
+`rewrite_camera` turns the written scene's pinhole COLMAP camera into one
+with lens distortion or a fisheye lens (the images stay the pinhole
+renders), so the camera models' ray casts can be driven on the fixture.
 """
 
 from __future__ import annotations
@@ -195,6 +199,28 @@ def main(out_dir: str, n_images: int = 30, height: int = 94, width: int = 310):
 
     print(f"fixture written: {dtu} and {nerfpp} ({n_images} views, "
           f"{height}x{width}, scale={scale:.6f})")
+
+
+# The coefficients `rewrite_camera` gives each lens model, in COLMAP's order
+# after the focal length(s) and principal point.
+LENS_COEFFS = {
+    "SIMPLE_RADIAL": (-0.08,),  # k1
+    "RADIAL": (-0.08, 0.02),  # k1, k2
+    "OPENCV": (-0.08, 0.02, 1e-3, -5e-4),  # k1, k2, p1, p2
+    "OPENCV_FISHEYE": (0.03, -0.01, 2e-3, -3e-4),  # k1, k2, k3, k4
+}
+
+
+def rewrite_camera(dtu_dir: str, model: str):
+    """Rewrite the shared camera of `dtu_dir`/sparse/0/cameras.bin as `model`
+    with its LENS_COEFFS, keeping its focal length and principal point."""
+    path = os.path.join(dtu_dir, "sparse/0/cameras.bin")
+    cams = colmap.read_cameras_bin(path)
+    (cam_id, cam), = cams.items()
+    focal = (cam.fx,) if model in ("SIMPLE_RADIAL", "RADIAL") else (cam.fx, cam.fy)
+    params = np.array(focal + (cam.cx, cam.cy) + LENS_COEFFS[model], np.float64)
+    colmap.write_cameras_bin({cam_id: colmap.Camera(cam_id, model, cam.width, cam.height, params)},
+                             path)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """The training loop and the evaluator, on one device.
 
 Port of `train` and `evaluate` from the reference package's `train/loop.py`
-for `dataset=synthetic`, `spheres`, `driving` and `nerfpp`: prefetched
+for every dataset the reference's `build_dataset` reads (`synthetic`,
+`spheres`, `driving`, `nerfpp`, `tnt`, `blender`, `tnt_fvs`, `dtu`, `nsvf`
+and `rtmv`): prefetched
 batches -> train step -> JSON log lines with the reference's keys every
 `print_every` steps, an optional held-out view render every
 `train_render_every` steps, checkpoints, and per-image eval metrics with
@@ -135,8 +137,10 @@ def build_dataset(config: Config, split: str):
             load_depth=config.depth_sup_type != "rgbonly",
             cast_on_device=config.cast_rays_in_train_step,
         )
-    if config.dataset == "nerfpp":
-        return datasets_lib.NerfppSceneDataset(
+    if config.dataset in ("nerfpp", "tnt"):
+        cls = (datasets_lib.TanksAndTemplesDataset if config.dataset == "tnt"
+               else datasets_lib.NerfppSceneDataset)
+        return cls(
             config.scene_dir,
             split,
             global_batch_size=config.batch_size,
@@ -144,7 +148,26 @@ def build_dataset(config: Config, split: str):
             depth_sup_type=config.depth_sup_type,
             cast_on_device=config.cast_rays_in_train_step,
         )
-    raise NotImplementedError(f"dataset {config.dataset!r} is not ported yet")
+    if config.dataset == "tnt_fvs":
+        return datasets_lib.TanksAndTemplesFVSDataset(
+            config.scene_dir,
+            split,
+            global_batch_size=config.batch_size,
+            factor=config.factor,
+            cast_on_device=config.cast_rays_in_train_step,
+        )
+    readers = {"blender": datasets_lib.BlenderDataset, "dtu": datasets_lib.DTUDataset,
+               "nsvf": datasets_lib.NSVFDataset, "rtmv": datasets_lib.RTMVDataset}
+    if config.dataset in readers:
+        return readers[config.dataset](
+            config.scene_dir,
+            split,
+            global_batch_size=config.batch_size,
+            near=config.near,
+            far=config.far,
+            cast_on_device=config.cast_rays_in_train_step,
+        )
+    raise ValueError(f"unknown dataset {config.dataset!r}")
 
 
 def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=None):

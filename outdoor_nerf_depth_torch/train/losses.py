@@ -1,20 +1,25 @@
 """Photometric, depth-supervision and proposal/distortion losses.
 
-Port of the mip-NeRF path of the reference package's `train/losses.py`:
-rgb (mse, charb), expected-depth (mse, l1) and DS-NeRF KL depth losses, the
-interlevel regularizer, the distortion regularizer on interval histories
-(mip-NeRF 360) and on point samples (Instant-NGP), NGP's opacity entropy
-and NeRF++'s autoexposure regularizer. The URF and Gaussian-NLL depth losses and the Ref-NeRF
+Port of the reference package's `train/losses.py`: rgb (mse, charb), the
+five depth-loss families (expected-depth mse and l1, DS-NeRF KL, Urban
+Radiance Fields and Gaussian NLL) and their dispatch on interval ('tdist')
+and point-sample ('steps'/'lengths') histories, the interlevel regularizer,
+the distortion regularizer on interval histories (mip-NeRF 360) and on
+point samples (Instant-NGP), NGP's opacity entropy and NeRF++'s
+autoexposure regularizer. The rawnerf rgb loss and the Ref-NeRF
 regularizers are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from outdoor_nerf_depth_torch.ops import mathx, stepfuns
+
+URF_SIGMA_SCALE = 3.0
 
 
 def rgb_loss(pred, target, lossmult=None, kind: str = "mse", charb_padding=0.001):
@@ -55,14 +60,48 @@ def ds_nerf_kl_loss(weights, depth_sup, steps, lengths, sigma,
     return torch.mean(per_ray * mask)
 
 
+def gaussian_nll_depth_loss(depth_pred, steps, weights, depth_sup, depth_sup_std,
+                            eps: float = 1e-3):
+    """Gaussian NLL of the render's termination distribution against the
+    measured depth (mean `depth_sup` <= 0 invalid, std `depth_sup_std`,
+    scalar or per ray), on the rays whose prediction falls outside the
+    measurement: |mean difference| > std, or predicted variance > std^2.
+    Masked-sum form: the sum over those rays divided by all rays."""
+    valid = depth_sup > 0
+    pred_var = torch.sum((steps - depth_pred[..., None]) ** 2 * weights, dim=-1) + 1e-5
+    std = torch.broadcast_to(torch.as_tensor(depth_sup_std, dtype=depth_sup.dtype,
+                                             device=depth_sup.device), depth_sup.shape)
+    outside = (torch.abs(depth_pred - depth_sup) - std > 0.0) | (std**2 < pred_var)
+    apply = valid & outside
+    var = torch.clamp(pred_var, min=eps)
+    nll = 0.5 * (torch.log(var) + (depth_pred - depth_sup) ** 2 / var)
+    return torch.sum(apply * nll) / depth_sup.numel()
+
+
+def urban_rf_depth_loss(weights, depth_sup, depth_pred, steps, sigma):
+    """Urban Radiance Fields LiDAR loss: L2 + near/empty line-of-sight terms."""
+    mask = (depth_sup > 0).to(weights.dtype)
+    l2 = (depth_sup - depth_pred) ** 2
+    scale = sigma / URF_SIGMA_SCALE
+    d = depth_sup[..., None]
+    log_prob = (-((steps - d) ** 2) / (2.0 * scale**2) - math.log(scale)
+                - 0.5 * math.log(2.0 * math.pi))
+    near_mask = (steps <= d + sigma) & (steps >= d - sigma)
+    near = torch.sum(near_mask * (weights - torch.exp(log_prob)) ** 2, dim=-1)
+    empty = torch.sum((steps < d - sigma) * weights**2, dim=-1)
+    return torch.mean((l2 + near + empty) * mask)
+
+
 def depth_loss_from_history(level_history: dict, depth_sup, depth_pred, dirs, sigma,
                             kind: str, reduce: str = "mean_all", fg_far_mask: bool = False):
     """Dispatch a depth loss given one level's ray history ('tdist' edges or
-    'steps'/'lengths' points)."""
+    'steps'/'lengths' points). `sigma` is the scene-scaled variance knob:
+    kl's window variance, urf's line-of-sight half-width (3 of its std) and,
+    through its square root, nll's measurement std. Only kl drops rays
+    beyond NeRF++'s `fg_far`."""
     if kind in ("mse", "l1"):
         return expected_depth_loss(depth_pred, depth_sup, kind=kind, reduce=reduce)
-    if kind != "kl":
-        raise NotImplementedError(f"depth loss {kind!r} is not ported yet")
+    weights = level_history["weights"]
     if "tdist" in level_history:
         tdist = level_history["tdist"]
         steps = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
@@ -70,7 +109,13 @@ def depth_loss_from_history(level_history: dict, depth_sup, depth_pred, dirs, si
     else:  # point samples
         steps, lengths = level_history["steps"], level_history["lengths"]
     fg_far = level_history.get("fg_far") if fg_far_mask else None
-    return ds_nerf_kl_loss(level_history["weights"], depth_sup, steps, lengths, sigma, fg_far)
+    if kind == "kl":
+        return ds_nerf_kl_loss(weights, depth_sup, steps, lengths, sigma, fg_far)
+    if kind == "urf":
+        return urban_rf_depth_loss(weights, depth_sup, depth_pred, steps, sigma)
+    if kind == "nll":
+        return gaussian_nll_depth_loss(depth_pred, steps, weights, depth_sup, math.sqrt(sigma))
+    raise ValueError(f"unknown depth loss {kind!r}")
 
 
 def interlevel_loss(ray_history) -> torch.Tensor:

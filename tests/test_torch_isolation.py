@@ -123,3 +123,20 @@ def test_the_eval_and_render_modules_are_checked(module):
     assert module in _port_modules()
     path = REPO / (module.replace(".", "/") + ".py")
     assert not BANNED.search(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.data.cameras",
+    "outdoor_nerf_depth_torch.data.datasets",
+    "outdoor_nerf_depth_torch.train.losses",
+    "outdoor_nerf_depth_torch.train.loop",
+    "outdoor_nerf_depth_torch.tools.make_kitti_fixture",
+    "outdoor_nerf_depth_torch.tools.make_blender_fixture",
+])
+def test_the_scene_reader_and_camera_modules_are_checked(module):
+    """The modules of the scene readers, camera models and depth-loss
+    families are among those the tests above import with the reference
+    stack and PIL blocked and scan for the reference's names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())

@@ -177,6 +177,7 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         t_loop.train(t_load_config(FLAGSHIP, SMALL + ["orientation_loss_mult=0.1"]),
                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_loop.train(t_load_config(FLAGSHIP, ["dataset=tnt", f"exp_dir={tmp_path}"]),
+    with pytest.raises(NotImplementedError, match="GLO"):
+        t_loop.train(t_load_config(FLAGSHIP, SMALL + [f"exp_dir={tmp_path}",
+                                                      'model_params={"num_glo_features": 4}']),
                      device="cpu")
