@@ -12,7 +12,8 @@ non-zero without the final line:
               [16, 524288, 16], P1 and P2 at the gather probe's 8.4M queries,
               which must match bit for bit; K2a and K2b also twice on one
               input, their run-to-run difference, and on bf16 inputs, which
-              they accumulate in f32 and return in bf16); times from CUDA
+              they accumulate in f32 and return in bf16; K2a also at the oct
+              layout's [4194304, 16]); times from CUDA
               events, with K1a and K1b also for one ray (their launch
               floor), a device copy of K2b's input, and P2 also at chunks
               of 256 and 1024 rows (same bytes, other k-step counts)
@@ -122,6 +123,21 @@ non-zero without the final line:
               depth losses, the launches of each run (3 K1a + 3 K1b a mip
               step, 1 + 1 + 16 K2a an NGP step, none for NeRF++), and each
               loss's median step ms over mse's
+  ngp_layouts the rest of NGP on the kitti fixture at full width:
+              configs/kitti_ngp.json under hash_layout oct, oct with
+              grad_mode=scatter, quad and corner for 20 steps each (median ms
+              of the steps without a refresh, peak memory, test PSNR/RMSE;
+              1 K1a and 1 K1b a step, 1 K2a a step at [4194304, 16] for oct
+              and none for the others), each trained encoding on the card
+              against the CPU on 4,096 points (forward, and the sorted table
+              gradient against autograd's scatter one); the HDR field with
+              optimize_ext on osplit for 20 steps (pose_dT's gradient finite
+              and non-zero, 16 K2a a step), its test views through the
+              dense and the iterative renderer; mark_invisible_cells on the
+              fixture's 27 train cameras and the 5 cascades of 128^3 cells
+              (ms, culled cells, border flips against the CPU); the NGP
+              quality gate (600 steps) under corner and oct, its thresholds
+              asserted; probes.ngp_layout.run() at full size
   blender     configs/blender_ngp.json at full width (hash grid L16 F2
               T2^19, 128 samples, 512 candidates, batch 8192, white
               background) on a Synthetic-NeRF-shaped layout written by
@@ -161,7 +177,7 @@ from outdoor_nerf_depth_torch.depth_priors import generate, stereo  # noqa: E402
 from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  # noqa: E402
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
-from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd  # noqa: E402
+from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bwd  # noqa: E402
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib  # noqa: E402
 from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
 from outdoor_nerf_depth_torch.tools import make_blender_fixture  # noqa: E402
@@ -211,7 +227,9 @@ K1_FLOOR_SHAPE = (1, 64)  # one ray: K1's time per call is then launch and laten
 # stream. Per element: read 4 B, write 4 B, one add.
 SCAN_BYTES, SCAN_OPS = 8, 1
 SCAN_PATH = (262144, 16)  # batch 8192 x sample_budget 32 points, 8F = 16 lanes
-SCAN_SHAPES = [SCAN_PATH, (1048576, 16), (16777216, 16),  # path, budget 0, 16.8M rows
+# The oct layout's one scan a step over all 16 levels at once.
+OCT_SCAN_PATH = (16 * SCAN_PATH[0], 16)
+SCAN_SHAPES = [SCAN_PATH, (1048576, 16), OCT_SCAN_PATH, (16777216, 16),  # path, budget 0, oct, 16.8M
                (osplit_bwd.SAMPLES, osplit_bwd.LANES),  # the osplit probe's per-level scan
                (1, 8), (7, 8), (4097, 8), (1, 128), (7, 128), (4097, 128)]
 # A float32 prefix sum in any order is off the exact sum by a few ulps of
@@ -289,6 +307,22 @@ LENS_MODELS, LENS_STEPS, LENS_CAST_RTOL_OF_MAX = ("OPENCV", "OPENCV_FISHEYE"), 4
 # Phase depth_losses: each backend on the fixture under mse, urf and nll.
 DEPTH_LOSS_RUNS = (("mip", CONFIG, 8), ("ngp", NGP_CONFIG, 20), ("nerfpp", NERFPP_CONFIG, 10))
 DEPTH_LOSS_KINDS = ("mse", "urf", "nll")
+# Phase ngp_layouts: configs/kitti_ngp.json on the kitti fixture under the
+# other hash layouts (oct also with autograd's scatter gradient), then the
+# HDR field with extrinsics refinement on osplit; the NGP gate under corner
+# and oct. The encodings on the card against the CPU on a few thousand
+# points: the forward blends 8 f32 products a level in another order
+# (1e-5 of the largest feature); the card's sorted table gradient against
+# the CPU's scatter one at 1e-4 of the largest entry (a row is the
+# difference of two f32 prefix sums, which reach ~10x the largest row; one
+# f32 ulp of a prefix 800x the row is 1e-4 of it). The cull on the card
+# against the CPU: a cell whose projection lies on an image border may flip
+# with the rounding of R^T (p - t); at most 1e-4 of the cells.
+LAYOUT_RUNS = (("oct", "auto"), ("oct", "scatter"), ("quad", "auto"), ("corner", "auto"))
+LAYOUT_CHECK_POINTS = 4096
+LAYOUT_FWD_RTOL, LAYOUT_GRAD_RTOL = 1e-5, 1e-4
+GATE_LAYOUTS = ("corner", "oct")
+CULL_FLIP_SHARE = 1e-4
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -2205,6 +2239,216 @@ def phase_depth_losses(root):
     return launches
 
 
+def _layout_config(root, scene, label, model=None, field=None):
+    """configs/kitti_ngp.json on the fixture for NGP_STEPS steps, with
+    `model` and `field` merged into its model_params and field_params."""
+    config = load_config(NGP_CONFIG, [f"scene_dir={scene}", f"max_steps={NGP_STEPS}",
+                                      "print_every=1", f"exp_dir={os.path.join(root, label)}"])
+    mp = copy.deepcopy(config.model_params)
+    mp.update(model or {})
+    mp["field_params"].update(field or {})
+    return config.replace(model_params=mp)
+
+
+def _without_refresh_ms(config, history):
+    """Host-clock ms of each logged step, and their median over the steps
+    without an occupancy refresh (and after the first)."""
+    step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
+    refresh = set(range(0, len(step_ms), config.occupancy_update_every))
+    return step_ms, statistics.median(
+        [ms for i, ms in enumerate(step_ms) if i > 0 and i not in refresh])
+
+
+def _encoding_against_cpu(encoder):
+    """The trained encoder on the card against its copy on the CPU taking
+    autograd's scatter gradient, on LAYOUT_CHECK_POINTS points: forward and
+    table gradient, each relative to its largest entry."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((LAYOUT_CHECK_POINTS, 3), generator=gen, device="cuda")
+    g = torch.randn((LAYOUT_CHECK_POINTS, encoder.out_dim), generator=gen, device="cuda")
+    card = copy.deepcopy(encoder)
+    card.table.grad = None
+    out = card(x)
+    (out * g).sum().backward()
+    cpu = copy.deepcopy(encoder).cpu()
+    cpu.sorted_grad, cpu.table.grad = False, None
+    out_cpu = cpu(x.cpu())
+    (out_cpu * g.cpu()).sum().backward()
+    err = {"fwd_max_abs_err": float((out.detach().cpu() - out_cpu.detach()).abs().max()),
+           "fwd_max_abs": float(out_cpu.detach().abs().max()),
+           "grad_max_abs_err": float((card.table.grad.cpu() - cpu.table.grad).abs().max()),
+           "grad_max_abs": float(cpu.table.grad.abs().max())}
+    if not (torch.isfinite(out).all() and torch.isfinite(card.table.grad).all()) or \
+            err["fwd_max_abs_err"] > LAYOUT_FWD_RTOL * err["fwd_max_abs"] or \
+            err["grad_max_abs_err"] > LAYOUT_GRAD_RTOL * err["grad_max_abs"] or \
+            err["grad_max_abs"] == 0.0:
+        raise AssertionError(f"{encoder.layout} encoding on the card against the CPU: {err}")
+    return err
+
+
+def _cull(config, grid):
+    """mark_invisible_cells on the train cameras of the fixture, on the card
+    (timed) and on the CPU: culled cells per cascade and border flips."""
+    dataset = build_dataset(config, "train")
+    c2w = torch.from_numpy(dataset.camtoworlds)
+    k = torch.from_numpy(np.linalg.inv(dataset.pixtocams).astype(np.float32))
+    args = (dataset.width, dataset.height, config.model_params["scale"])
+    card_in = (grid.cuda(), c2w.cuda(), k.cuda())
+    occ_lib.mark_invisible_cells(*card_in, *args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = occ_lib.mark_invisible_cells(*card_in, *args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    cpu = occ_lib.mark_invisible_cells(grid.cpu(), c2w, k, *args)
+    card_culled, cpu_culled = card.cpu() == -1.0, cpu == -1.0
+    flips = int((card_culled != cpu_culled).sum())
+    if flips > CULL_FLIP_SHARE * grid.numel() or not card_culled.any() or card_culled.all():
+        raise AssertionError(f"cull: {flips} cells flip between the card and the CPU, "
+                             f"{int(card_culled.sum())} culled of {grid.numel()}")
+    return {"cameras": int(c2w.shape[0]), "image": [dataset.height, dataset.width],
+            "cells_per_cascade": int(grid.shape[1]), "ms": ms,
+            "culled_per_cascade": card_culled.sum(dim=1).tolist(),
+            "culled_per_cascade_cpu": cpu_culled.sum(dim=1).tolist(),
+            "cells_flipping_card_vs_cpu": flips}
+
+
+def _layout_gate(root, layout):
+    """The NGP quality gate with its model_params naming `layout`, through
+    tools.quality_gate's gate function on a copy of its NGP gate."""
+    gates = quality_gate.GATES
+    gate = copy.deepcopy(gates["ngp"])
+    gate["config"]["model_params"]["hash_layout"] = layout
+    quality_gate.GATES = dict(gates, ngp=gate)
+    exp_root = os.path.join(root, f"gate_{layout}")
+    try:
+        config = quality_gate.gate_config("ngp", exp_root)
+        _reset_launches()
+        shapes = set()
+        with _record_scan_shapes(shapes):
+            result, _ = _quiet(quality_gate.run_gate, "ngp", exp_root, 1.0, "cuda")
+    finally:
+        quality_gate.GATES = gates
+    launches = _launches()
+    want = _gate_launches("ngp", config, 1 if layout == "oct" else 0, 2)
+    want_shapes = {OCT_SCAN_PATH} if layout == "oct" else set()
+    if launches != want or shapes != want_shapes:
+        raise AssertionError(f"gate {layout}: launches {launches} at {shapes}, expected {want}")
+    if not result["passed"]:
+        raise AssertionError(f"gate {layout} fails {result['thresholds']}: {result['metrics']}")
+    return dict(result, hash_layout=layout, launches=launches, k2a_shapes=sorted(shapes)), launches
+
+
+def phase_ngp_layouts(root):
+    """The rest of NGP at full width: configs/kitti_ngp.json on the kitti
+    fixture under the oct (sorted and scatter), quad and corner layouts, each
+    encoding against the CPU; the HDR field with extrinsics refinement on
+    osplit; the visibility cull; the NGP gate under corner and oct; the
+    layout probe at full size. Launches per run asserted."""
+    scene = os.path.join(root, "dtu_format")
+    chunks = KITTI_TEST_VIEWS * math.ceil(HEIGHT * WIDTH / 16384)
+    out = {"phase": "ngp_layouts", "runs": {}}
+    launches = {}
+    for layout, grad_mode in LAYOUT_RUNS:
+        label = layout if grad_mode == "auto" else f"{layout}_{grad_mode}"
+        config = _layout_config(root, scene, f"layout_{label}", {"hash_layout": layout},
+                                {"grad_mode": grad_mode})
+        shapes = set()
+        model, history, run_launches, seconds, peak = _train_phase(config, scan_shapes=shapes)
+        oct_sorted = layout == "oct" and grad_mode != "scatter"
+        want = _only(K1a=NGP_STEPS, K1b=NGP_STEPS, K2a=NGP_STEPS if oct_sorted else 0)
+        if run_launches != want or shapes != ({OCT_SCAN_PATH} if oct_sorted else set()):
+            raise AssertionError(f"{label}: launches {run_launches} at {shapes}, expected {want}")
+        if model.field.encoder.layout != layout:
+            raise AssertionError(f"{label}: the model hashes as {model.field.encoder.layout}")
+        _check_history(history, NGP_STEPS)
+        step_ms, steady = _without_refresh_ms(config, history)
+        check = _encoding_against_cpu(model.field.encoder)
+        _reset_launches()
+        mean, per_image = evaluate(config, model, device="cuda", log_fn=lambda line: None)
+        if _launches() != _only(K1a=chunks) or len(per_image) != KITTI_TEST_VIEWS or \
+                not all(math.isfinite(mean[k]) for k in ("psnr", "rmse")):
+            raise AssertionError(f"{label} eval: {_launches()}, {mean}")
+        launches[f"ngp_layouts_{label}"] = run_launches
+        out["runs"][label] = {
+            "hash_layout": layout, "grad_mode": grad_mode, "steps": NGP_STEPS,
+            "seconds": seconds, "step_ms": step_ms, "median_step_ms_without_refresh": steady,
+            "rays_per_sec": 1e3 * config.batch_size / steady,
+            "max_memory_allocated_bytes": peak, "launches": run_launches,
+            "k2a_shapes": sorted(shapes), "card_vs_cpu": check,
+            "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+            "test_psnr": mean["psnr"], "test_rmse": mean["rmse"],
+            "test_ssim": mean["ssim"]}
+        del model
+        torch.cuda.empty_cache()
+
+    # The HDR field with per-image extrinsics refinement on osplit.
+    config = _layout_config(root, scene, "layout_hdr_ext",
+                            {"optimize_ext": True, "num_images": KITTI_VIEWS},
+                            {"rgb_activation": "none"})
+    model, history, run_launches, seconds, peak = _train_phase(config)
+    if run_launches != _ngp_launches(NGP_STEPS):
+        raise AssertionError(f"hdr_ext: launches {run_launches}")
+    _check_history(history, NGP_STEPS)
+    pose_grad = model.pose_dT.weight.grad
+    if pose_grad is None or not torch.isfinite(pose_grad).all() or not pose_grad.abs().max() > 0:
+        raise AssertionError(f"hdr_ext: pose_dT gradient {pose_grad}")
+    step_ms, steady = _without_refresh_ms(config, history)
+    hdr = {"steps": NGP_STEPS, "seconds": seconds, "step_ms": step_ms,
+           "median_step_ms_without_refresh": steady, "max_memory_allocated_bytes": peak,
+           "launches": run_launches,
+           "pose_dT_grad_max_abs": float(pose_grad.abs().max()),
+           "pose_dR_max_abs": float(model.pose_dR.weight.detach().abs().max()),
+           "pose_dT_max_abs": float(model.pose_dT.weight.detach().abs().max()),
+           "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")}}
+    for renderer in ("train", "iterative"):
+        _reset_launches()
+        mean, per_image = evaluate(config.replace(ngp_eval_renderer=renderer), model,
+                                   device="cuda", log_fn=lambda line: None)
+        want = _only(K1a=chunks if renderer == "train" else 0)
+        if _launches() != want or len(per_image) != KITTI_TEST_VIEWS or \
+                not all(math.isfinite(mean[k]) for k in ("psnr", "rmse")):
+            raise AssertionError(f"hdr_ext {renderer} eval: {_launches()}, {mean}")
+        hdr[f"eval_{renderer}"] = {"psnr": mean["psnr"], "rmse": mean["rmse"],
+                                   "ssim": mean["ssim"]}
+    # Test view 0 through the iterative renderer against the dense one at
+    # budget 0 (phase ngp_eval's two quadratures of one field, 0.02 apart
+    # on the mean); the config's budget keeps each ray's nearest samples.
+    batch = build_dataset(config, "test").image_batch(0)
+    renders = {"iterative": step_lib.render_image(model, batch, config.render_chunk_size,
+                                                  "cuda", "iterative"),
+               "budget": step_lib.render_image(model, batch, config.render_chunk_size, "cuda")}
+    budget, model.sample_budget = model.sample_budget, 0
+    try:
+        renders["budget0"] = step_lib.render_image(model, batch, config.render_chunk_size, "cuda")
+    finally:
+        model.sample_budget = budget
+    diff = {name: {k: float(np.mean(np.abs(renders["iterative"][k] - renders[name][k])))
+                   for k in ("rgb", "acc")} for name in ("budget0", "budget")}
+    if max(diff["budget0"].values()) > NGP_EVAL_MEAN_TOL:
+        raise AssertionError(f"hdr_ext: iterative and dense renders disagree: {diff}")
+    hdr["iterative_vs_dense_mean_abs"] = diff
+    launches["ngp_layouts_hdr_ext"] = run_launches
+    out["hdr_ext"] = hdr
+    out["cull"] = _cull(config, model.occupancy.detach())
+    del model
+    torch.cuda.empty_cache()
+
+    out["gates"] = []
+    for layout in GATE_LAYOUTS:
+        result, gate_launches = _layout_gate(root, layout)
+        launches[f"ngp_layouts_gate_{layout}"] = gate_launches
+        out["gates"].append(result)
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["probe"] = ngp_layout.run("cuda")
+    out["probe_seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -2222,7 +2466,8 @@ def summary(k, launches):
                      "eval_render", "gate_ngp", "gate_mipnerf360", "gate_nerfpp", "blender",
                      "blender_eval")
         return sum(counts[kernel] for p, counts in launches.items()
-                   if p in main_path or p.startswith(("cameras_", "depth_losses_")))
+                   if p in main_path or p.startswith(("cameras_", "depth_losses_",
+                                                      "ngp_layouts_")))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
@@ -2235,6 +2480,7 @@ def summary(k, launches):
                            "and nll depth losses (phase depth_losses) and NGP on the Blender "
                            "layout, trained and evaluated (phase blender)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
+    oct_path = f"{OCT_SCAN_PATH[0]}x{OCT_SCAN_PATH[1]}"
     kernels = [
         dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
              replaces="outdoor_nerf_depth_tpu/ops/pallas_volren.py:54",
@@ -2263,8 +2509,10 @@ def summary(k, launches):
          "launches": on_path("K2a"), "launches_by_phase": by_phase("K2a"),
          "launches_note": "NGP train runs on the synthetic scene and the KITTI fixture, "
                           "float32 and bf16, the NGP quality gate (phase gate), NGP under the "
-                          "mse, urf and nll depth losses (phase depth_losses) and on the "
-                          "Blender layout (phase blender)",
+                          "mse, urf and nll depth losses (phase depth_losses), on the "
+                          "Blender layout (phase blender), and the oct layout's one scan a step "
+                          "and osplit's HDR field with extrinsics refinement (phase "
+                          "ngp_layouts)",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
          "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                     for e in k["bf16_errors"].values()),
@@ -2276,6 +2524,9 @@ def summary(k, launches):
          "plain_ms": NGP_LEVELS * scan_timing[path]["plain_ms"],
          "bound_ms": NGP_LEVELS * scan_timing[path]["bound_ms"], "bound_by": "bytes",
          "library_ms": NGP_LEVELS * scan_timing[path]["library_ms"],
+         "oct_step": dict(scan_timing[oct_path], shape=list(OCT_SCAN_PATH), bound_by="bytes",
+                          launches=sum(counts["K2a"] for p, counts in launches.items()
+                                       if p.startswith("ngp_layouts_oct"))),
          "per_call": scan_timing},
     ]
     batched = "x".join(str(d) for d in SCAN_BATCHED_PATH)
@@ -2337,6 +2588,7 @@ def main():
         launches.update(phase_eval_render(root, kitti_mip_eval))
         launches.update(phase_cameras(root))
         launches.update(phase_depth_losses(root))
+        launches.update(phase_ngp_layouts(root))
     launches.update(phase_lpips())
     launches.update(phase_gate())
     launches.update(phase_blender())

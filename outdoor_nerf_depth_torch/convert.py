@@ -6,8 +6,9 @@ each Flax `Dense` is an `nn.Linear` of the same name; a Dense kernel is
 [in, out] and a Linear weight is [out, in]. A module that lists
 `flax_dense_names` (NeRF++'s `PointFieldMLP`) takes Flax's auto-named
 `Dense_{i}` as its i-th named layer. A Flax `Embed` (`embedding`, NeRF++'s
-autoexposure) is an `nn.Embedding` weight and, like the hash-grid table
-(`field/encoder/table`, [L, T, F]), is copied as it is.
+autoexposure, NGP's `pose_dR`/`pose_dT`) is an `nn.Embedding` weight and,
+like the hash-grid table (`field/encoder/table`, [L, T, F]), is copied as
+it is.
 
 The depth-prior nets (`depth_priors/`) hold 2D and 3D `Conv` kernels
 [*kernel, in, out], which become torch weights [out, in, *kernel], GroupNorm

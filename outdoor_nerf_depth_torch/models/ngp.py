@@ -12,20 +12,26 @@ ray is opaque or out of the scene. With a bfloat16 `compute_dtype` the
 MLPs run in bfloat16 and density and rgb return to float32 before their
 activations, as in the reference.
 
+Two options of the reference's `ngp-depth`: the HDR field
+(`rgb_activation="none"`), whose rgb net emits log-radiance that three
+per-channel tonemapper nets map, with the ray's log-exposure added, to LDR
+colour (`output_radiance=True` renders the radiance itself); and per-image
+extrinsics refinement (`optimize_ext`): zero-initialised rotation
+(axis-angle) and translation deltas per camera index, `pose_dR` and
+`pose_dT`, applied to every ray before marching.
+
 The occupancy grid is a buffer of the model (`occupancy`), so `.to()` and
 copies carry it; `forward` takes the grid as an explicit argument, as in the
 reference (`occupancy=None` marches densely). The train step and the
 renderer pass the buffer. Layer names match the Flax modules:
 `field.encoder.table`, `field.sigma_hidden`, `field.sigma_out`,
-`field.rgb_hidden{i}`, `field.rgb_out`.
-
-Not ported in this slice, each raising NotImplementedError where asked for:
-per-image extrinsics refinement (`optimize_ext`) and the HDR tonemapper
-(`rgb_activation="none"`).
+`field.rgb_hidden{i}`, `field.rgb_out`, `field.tonemap_hidden{i}`,
+`field.tonemap_out{i}`, `pose_dR`, `pose_dT`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -59,11 +65,9 @@ class HashGridField(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        del tonemap_width
-        if rgb_activation != "sigmoid":
-            raise NotImplementedError(
-                f"rgb_activation={rgb_activation!r} (the HDR tonemapper) is not ported yet"
-            )
+        if rgb_activation not in ("sigmoid", "none"):
+            raise ValueError(f"rgb_activation={rgb_activation!r}: expected 'sigmoid' or 'none'")
+        self.hdr = rgb_activation == "none"
         max_res = max_resolution or max(int(2048 * 2 * scale), base_resolution + 1)
         self.encoder = hashgrid.HashGridEncoding(
             n_levels=n_levels, n_features=n_features, log2_table_size=log2_table_size,
@@ -83,6 +87,12 @@ class HashGridField(nn.Module):
             self.rgb_names.append(f"rgb_hidden{i}")
             y_dim = hidden_width
         self.rgb_out = _dense(y_dim, 3, generator, compute_dtype=dtype)
+        if self.hdr:
+            for i in range(3):
+                self.add_module(f"tonemap_hidden{i}",
+                                _dense(1, tonemap_width, generator, compute_dtype=dtype))
+                self.add_module(f"tonemap_out{i}",
+                                _dense(tonemap_width, 1, generator, compute_dtype=dtype))
 
     def density(self, x, prepared=None):
         """sigma [...], geometry features [..., geo_features] of world points."""
@@ -91,15 +101,34 @@ class HashGridField(nn.Module):
         h = self.sigma_out(F.relu(self.sigma_hidden(enc))).to(torch.float32)
         return hashgrid.truncated_exp(h[..., 0]), h[..., 1:]
 
-    def forward(self, x, viewdirs, prepared=None):
-        """x [..., 3] world points, viewdirs [..., 3] unit -> (sigma, rgb)."""
+    def tonemap(self, log_radiance, exposure=None):
+        """Per-channel learned tonemapping of log-radiance plus log-exposure."""
+        log_expo = 0.0 if exposure is None else torch.log(exposure)
+        chans = []
+        for i in range(3):
+            inp = (log_radiance[..., i:i + 1] + log_expo).to(self.compute_dtype)
+            h = F.relu(getattr(self, f"tonemap_hidden{i}")(inp))
+            chans.append(torch.sigmoid(getattr(self, f"tonemap_out{i}")(h).to(torch.float32)))
+        return torch.cat(chans, dim=-1)
+
+    def forward(self, x, viewdirs, exposure=None, output_radiance: bool = False, prepared=None):
+        """x [..., 3] world points, viewdirs [..., 3] unit -> (sigma, rgb).
+
+        An HDR field returns the radiance itself with `output_radiance`,
+        else its tonemapped colour under `exposure` (broadcast against
+        [..., 1]; None: exposure 1)."""
         sigma, feats = self.density(x, prepared=prepared)
         sh = hashgrid.spherical_harmonics(viewdirs)
         y = torch.cat([sh.expand(feats.shape[:-1] + sh.shape[-1:]), feats], dim=-1)
         y = y.to(self.compute_dtype)
         for name in self.rgb_names:
             y = F.relu(getattr(self, name)(y))
-        return sigma, torch.sigmoid(self.rgb_out(y).to(torch.float32))
+        out = self.rgb_out(y).to(torch.float32)
+        if not self.hdr:
+            return sigma, torch.sigmoid(out)
+        if output_radiance:
+            return sigma, hashgrid.truncated_exp(out)
+        return sigma, self.tonemap(out, exposure)
 
 
 class HashGridModel(nn.Module):
@@ -129,11 +158,6 @@ class HashGridModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        # Options of the HDR field, which is not ported; with a sigmoid
-        # field `output_radiance` changes nothing.
-        del output_radiance, num_images
-        if optimize_ext:
-            raise NotImplementedError("optimize_ext (extrinsics refinement) is not ported yet")
         self.scale = scale
         self.grid_resolution = grid_resolution
         self.max_samples = max_samples
@@ -147,6 +171,9 @@ class HashGridModel(nn.Module):
         self.eval_candidates_per_round = eval_candidates_per_round
         self.eval_early_stop_eps = eval_early_stop_eps
         self.eval_max_total_samples = eval_max_total_samples
+        # With a sigmoid field `output_radiance` changes nothing.
+        self.output_radiance = output_radiance
+        self.optimize_ext = optimize_ext
         field_kwargs = dict(field_params or {})
         field_kwargs.setdefault("hash_layout", hash_layout)
         # An explicit field_params["hash_layout"] wins; checkpoints record it.
@@ -155,6 +182,35 @@ class HashGridModel(nn.Module):
                                    generator=generator, **field_kwargs)
         self.e_max = self.field.e_max
         self.register_buffer("occupancy", occ.init_grid(scale, grid_resolution))
+        if optimize_ext:
+            self.pose_dR = nn.Embedding(num_images, 3)
+            self.pose_dT = nn.Embedding(num_images, 3)
+            nn.init.zeros_(self.pose_dR.weight)
+            nn.init.zeros_(self.pose_dT.weight)
+
+    def refine_rays(self, rays):
+        """Rays under each camera's learned SE(3) delta: directions and
+        viewdirs rotated by Rodrigues' formula about dR[cam] (viewdirs
+        renormalised), origins moved by dT[cam]. Unchanged without
+        `optimize_ext`."""
+        if not self.optimize_ext:
+            return rays
+        idx = rays.cam_idx[..., 0].to(torch.int64)
+        dr, dt = self.pose_dR(idx), self.pose_dT(idx)
+        # The 1e-12 keeps axis = dr / theta finite (0) at dr = 0, where the
+        # deltas start; its gradient there is that of the rotation's first order.
+        theta = torch.sqrt(torch.sum(dr**2, dim=-1, keepdim=True) + 1e-12)
+        axis = dr / theta
+        cos, sin = torch.cos(theta), torch.sin(theta)
+
+        def rot(v):
+            return (v * cos + torch.linalg.cross(axis, v) * sin
+                    + axis * torch.sum(axis * v, dim=-1, keepdim=True) * (1.0 - cos))
+
+        viewdirs = rot(rays.viewdirs)
+        return dataclasses.replace(
+            rays, origins=rays.origins + dt, directions=rot(rays.directions),
+            viewdirs=viewdirs / torch.linalg.norm(viewdirs, dim=-1, keepdim=True))
 
     def density(self, x, prepared=None):
         """Raw density, for occupancy-grid refreshes."""
@@ -179,6 +235,8 @@ class HashGridModel(nn.Module):
         candidate is occupied).
         """
         del train_frac, compute_extras
+        rays = self.refine_rays(rays)
+        exposure = rays.exposure_values
         # March along unit directions, so t is metric distance.
         t_near, t_far, hit = occ.intersect_aabb(
             rays.origins, rays.viewdirs, self.e_max, near_min=self.near_distance
@@ -210,13 +268,18 @@ class HashGridModel(nn.Module):
             budget = n_rays * int(self.sample_budget)
             sel, inv = occ.batch_compaction_plan(valid, budget)
             pts_c = pts.reshape(-1, 3)[sel]
-            vdirs_c = rays.viewdirs.reshape(-1, 3)[sel // k]
-            sigma_c, rgb_c = self.field(pts_c, vdirs_c)
+            ray_id = sel // k
+            vdirs_c = rays.viewdirs.reshape(-1, 3)[ray_id]
+            exp_c = None if exposure is None else exposure.reshape(-1, exposure.shape[-1])[ray_id]
+            sigma_c, rgb_c = self.field(pts_c, vdirs_c, exposure=exp_c,
+                                        output_radiance=self.output_radiance)
             dense = occ.expand_compacted(torch.cat([sigma_c[:, None], rgb_c], dim=-1), inv, sel)
             sigma = dense[:, 0].reshape(batch_shape + (k,))
             rgb = dense[:, 1:].reshape(batch_shape + (k, 3))
         else:
-            sigma, rgb = self.field(pts, rays.viewdirs[..., None, :])
+            sigma, rgb = self.field(pts, rays.viewdirs[..., None, :],
+                                    exposure=None if exposure is None else exposure[..., None, :],
+                                    output_radiance=self.output_radiance)
         sigma = torch.where(valid, sigma, 0.0)
 
         weights = volren.weights_from_optical_depth(sigma * dt)
@@ -264,6 +327,10 @@ class HashGridModel(nn.Module):
         Returns rgb (over the `bg_intensity_range` midpoint), depth,
         distance_mean, acc, samples_per_ray and rounds, per ray.
         """
+        rays = self.refine_rays(rays)
+        exposure = rays.exposure_values
+        if exposure is not None:
+            exposure = exposure[..., None, :]
         n_cand, n_samp = self.eval_candidates_per_round, self.eval_samples_per_round
         if max_rounds is None:
             max_rounds = max(4, 2 * self.eval_max_total_samples // n_samp)
@@ -299,7 +366,8 @@ class HashGridModel(nn.Module):
                 sample_pts = origins[..., None, :] + t_mid[..., None] * viewdirs[..., None, :]
                 # Dead slots all read one constant point; their output is masked.
                 sample_pts = torch.where(valid[..., None], sample_pts, 0.0)
-                sigma, rgb = self.field(sample_pts, viewdirs[..., None, :], prepared=prepared)
+                sigma, rgb = self.field(sample_pts, viewdirs[..., None, :], exposure=exposure,
+                                        output_radiance=self.output_radiance, prepared=prepared)
             else:  # pure marching: no field evaluation this round
                 sigma = torch.zeros_like(t_mid)
                 rgb = torch.zeros(t_mid.shape + (3,), device=t_mid.device)

@@ -1,24 +1,49 @@
-"""Multiresolution hash-grid encoding, "osplit" layout (the Instant-NGP field).
+"""Multiresolution hash-grid encoding (the Instant-NGP field), every layout.
 
-Port of the osplit path of the reference package's `ops/hashgrid.py`. The
-hash is fully linear, h(x, y, z) = (x P1 + y P2 + z) mod T, on levels whose
-dense grid outgrows the table T; coarser levels index their (res+1)^3 grid
-injectively. Under a linear hash the eight corners of a cell sit at fixed
-row offsets from the cell's base row, so each level keeps a bf16 "physical"
-table whose row i packs the canonical rows i + offset_c of all eight
-corners (8F lanes), trimmed to (res+1)^3 rows on dense levels. The forward
-is one row gather per (point, level) and a trilinear blend in f32.
+Port of the reference package's `ops/hashgrid.py`. Four table layouts:
 
-The table gradient is the reference's scatter-free sorted-segment sum, per
-level: each product w*g is rounded to bf16, the [points, 8F] stream is
-sorted by physical row and prefix-summed in f32 (CUDA kernel K2a on the
-GPU, `ops/prefix_scan.py`), and each row's sum is the difference of the
-prefix sums at its segment's ends; eight rolls fold the physical-row sums
-back onto the canonical table. `grad_mode` "auto" and "sorted" both take
-this path on every device. The encoding computes in f32 and returns its
-features in the module's `compute_dtype`, as the reference does; a bf16
-cotangent is cast back to f32 before the table gradient. The layouts
-"oct", "quad" and "corner", and `pack_rows`, are not ported and raise.
+- "corner": the classic spatial hash of tiny-cuda-nn, (x P0) ^ (y P1) ^
+  (z P2) mod T on levels whose dense grid outgrows the table T, z-major
+  injective indexing x + y s + z s^2 (s = res + 1) on coarser levels; eight
+  row gathers per (point, level). `pack_rows` P > 1 views the table as
+  [L T / P, P F], gathers those wide rows and selects the F lanes.
+- "osplit" (default), "oct", "quad": one fully linear hash,
+  (x P1 + y P2 + z) mod T, x-major dense indexing x s^2 + y s + z. Under a
+  linear hash the eight corners of a cell sit at fixed row offsets from its
+  base row, so a "physical" table whose row i packs the canonical rows
+  i + offset_c serves a cell in one gather ("oct": eight corners, 8F
+  lanes, one f32 table trimmed to (res+1)^3 rows on dense levels; "osplit":
+  the same, one bf16 table per level) or two ("quad": four corners y/z,
+  4F lanes, [L, T, 4F]). The three share the hash, so their trained tables
+  are interchangeable; corner's are not.
+
+The hashes are computed in int64 and masked with T - 1. The reference
+multiplies uint32 values with wraparound; T is a power of two dividing
+2^32, so the low bits of the exact int64 products (and of their XOR) are
+the same.
+
+`grad_mode` "sorted" and "auto" take the reference's scatter-free
+sorted-segment table gradient on every device; "scatter" differentiates the
+gathers with autograd (an accumulating index_put), as does `pack_rows`.
+The sorted gradients:
+
+- osplit, per level: each product w*g rounded to bf16, sorted by physical
+  row and prefix-summed in f32 by CUDA kernel K2a (`ops/prefix_scan.py`);
+  each row's sum is the difference of the prefix sums at its segment's
+  ends. This is the reference's default pipeline; its environment switches
+  (an f32 gather, the one-sort "merged" pipeline) are not read here, and
+  only the osplit backward probe calls `_oct_split_row_sums_merged`.
+- oct: the same in one pass over all levels, [points x L, 8F] in f32 (one
+  K2a launch).
+- corner and quad: the reference's sentinel pipeline over the canonical
+  (corner) or quad rows, scanned with torch.cumsum as the reference scans
+  with jnp.cumsum.
+
+Rolls fold the physical-row sums back onto the canonical table. The
+position gradient is the analytic derivative of the trilinear weights. The
+encoding computes in f32 and returns its features in the module's
+`compute_dtype`, as the reference does; a bf16 cotangent is cast back to
+f32 before the table gradient.
 """
 
 from __future__ import annotations
@@ -35,6 +60,7 @@ from outdoor_nerf_depth_torch.ops import mathx, prefix_scan
 # Large primes of the Instant-NGP spatial hash (x uses stride 1).
 _PRIMES = (1, 2_654_435_761, 805_459_861)
 LAYOUTS = ("osplit", "oct", "quad", "corner")
+GRAD_MODES = ("auto", "sorted", "scatter")
 
 
 def growth_factor(n_levels: int, n_min: int, n_max: int) -> float:
@@ -53,13 +79,9 @@ def _is_dense(resolution: int, table_size: int) -> bool:
 
 
 def _quad_base_index(cell: torch.Tensor, resolution: int, table_size: int) -> torch.Tensor:
-    """Row of the (x0, y0, z0) corner of int64 cells [..., 3].
-
-    Dense levels use the x-major layout x (s^2) + y s + z with s = res + 1;
-    hashed levels (x P1 + y P2 + z) mod T. The reference multiplies uint32
-    values with wraparound and masks with T - 1; T is a power of two that
-    divides 2^32, so the low bits of the exact int64 sum are the same.
-    """
+    """Row of the (x0, y0, z0) corner of int64 cells [..., 3] under the
+    linear hash: x (s^2) + y s + z (s = res + 1) on dense levels, else
+    (x P1 + y P2 + z) mod T."""
     if _is_dense(resolution, table_size):
         s = resolution + 1
         return cell[..., 0] * (s * s) + cell[..., 1] * s + cell[..., 2]
@@ -68,7 +90,9 @@ def _quad_base_index(cell: torch.Tensor, resolution: int, table_size: int) -> to
 
 
 def _oct_offsets(resolution: int, table_size: int):
-    """Row offsets of the eight cell corners, lane = 4 cx + 2 cy + cz."""
+    """Row offsets of the eight cell corners under the linear hash, lane =
+    4 cx + 2 cy + cz. The first four are the quad layout's lanes {0, 1, Sy,
+    Sy + 1}; lane 4 is the offset of the x + 1 corner."""
     if _is_dense(resolution, table_size):
         s = resolution + 1
         sx, sy = s * s, s
@@ -84,18 +108,36 @@ def _oct_level_rows(resolutions: Sequence[int], table_size: int):
             for r in resolutions]
 
 
+def _packed_rows(level_table: torch.Tensor, offsets, n_rows: int) -> torch.Tensor:
+    """[n_rows, len(offsets) F]: row i, lane c holds canonical row
+    (i + offsets[c]) mod T of the level (the reference's rolls)."""
+    table_size = level_table.shape[0]
+    offs = torch.tensor(offsets, device=level_table.device)
+    rows = (torch.arange(n_rows, device=level_table.device)[:, None] + offs) % table_size
+    return level_table[rows].reshape(n_rows, -1)
+
+
 def build_oct_tables_split(table: torch.Tensor, resolutions, table_size: int,
                            dtype=torch.bfloat16):
-    """Per-level physical tables [rows_l, 8F]: row i, lane c holds
-    canonical row (i + offset_c) mod T of the level, cast to `dtype`."""
-    out = []
+    """Per-level trimmed oct physical tables [rows_l, 8F], cast to `dtype`."""
     level_rows = _oct_level_rows(resolutions, table_size)
-    for level, res in enumerate(resolutions):
-        offs = torch.tensor(_oct_offsets(int(res), table_size), device=table.device)
-        rows = (torch.arange(level_rows[level], device=table.device)[:, None] + offs) % table_size
-        packed = table[level][rows]  # [rows_l, 8, F]
-        out.append(packed.reshape(level_rows[level], -1).to(dtype))
-    return tuple(out)
+    return tuple(_packed_rows(table[level], _oct_offsets(int(res), table_size),
+                              level_rows[level]).to(dtype)
+                 for level, res in enumerate(resolutions))
+
+
+def build_oct_table(table: torch.Tensor, resolutions, table_size: int) -> torch.Tensor:
+    """The oct layout's one physical table [sum(rows_l), 8F], in the table's dtype."""
+    return torch.cat(build_oct_tables_split(table, resolutions, table_size, table.dtype))
+
+
+def build_quad_table(table: torch.Tensor, resolutions, table_size: int) -> torch.Tensor:
+    """The quad layout's physical table [L, T, 4F]: row i packs canonical
+    rows i, i + 1, i + Sy, i + Sy + 1 (mod T; dense levels never read the
+    wrapped rows)."""
+    return torch.stack([_packed_rows(table[level], _oct_offsets(int(res), table_size)[:4],
+                                     table_size)
+                        for level, res in enumerate(resolutions)])
 
 
 def _corner_bits(device) -> torch.Tensor:
@@ -122,6 +164,117 @@ def _level_cells(x: torch.Tensor, resolution: int):
     return cell, pos - cell
 
 
+def _blend_levels(feats: torch.Tensor, w_all: torch.Tensor) -> torch.Tensor:
+    """sum_c w[..., L, c] feats[..., L, c, F] -> [..., L*F]."""
+    out = torch.sum(w_all[..., None] * feats, dim=-2)
+    return out.reshape(out.shape[:-2] + (-1,))
+
+
+# ---- corner layout -------------------------------------------------------
+
+
+def _hash_corner(coords: torch.Tensor, resolution: int, table_size: int) -> torch.Tensor:
+    """Row of int64 grid coords [..., 3]: z-major x + y s + z s^2 (s = res
+    + 1) on dense levels, else (x P0) ^ (y P1) ^ (z P2) mod T."""
+    if _is_dense(resolution, table_size):
+        s = resolution + 1
+        return coords[..., 0] + coords[..., 1] * s + coords[..., 2] * (s * s)
+    h = (coords[..., 0] * _PRIMES[0]) ^ (coords[..., 1] * _PRIMES[1]) ^ (coords[..., 2] * _PRIMES[2])
+    return h & (table_size - 1)
+
+
+def _corner_indices_weights(x: torch.Tensor, resolutions, table_size: int):
+    """(idx [..., L, 8] into the flattened [L*T] table, w [..., L, 8])."""
+    x = torch.clamp(x, 0.0, 1.0)
+    corners = _corner_bits(x.device).to(torch.int64)
+    idx_levels, w_levels = [], []
+    for level, res in enumerate(resolutions):
+        cell, frac = _level_cells(x, int(res))
+        idx = _hash_corner(cell[..., None, :] + corners, int(res), table_size)
+        idx_levels.append(idx + level * table_size)
+        w_levels.append(_corner_weights(frac))
+    return torch.stack(idx_levels, dim=-2), torch.stack(w_levels, dim=-2)
+
+
+def encode(x, table, resolutions, table_size: int, pack_rows: int = 0):
+    """Hash-encode unit-cube points [..., 3] -> [..., L*F] under the corner
+    hash. `pack_rows` P > 1 gathers rows of the [L*T/P, P*F] view of the
+    table, then selects each corner's F lanes."""
+    n_feats = table.shape[-1]
+    idx, w_all = _corner_indices_weights(x, resolutions, table_size)
+    if pack_rows > 1:
+        rows = table.reshape(-1, pack_rows * n_feats)[idx // pack_rows]  # [..., L, 8, P*F]
+        lane = (idx % pack_rows)[..., None] * n_feats + torch.arange(n_feats, device=x.device)
+        feats = torch.gather(rows, -1, lane)
+    else:
+        feats = table.reshape(-1, n_feats)[idx]  # [..., L, 8, F]
+    return _blend_levels(feats, w_all)
+
+
+# ---- quad layout ---------------------------------------------------------
+
+
+def _quad_indices_weights(x: torch.Tensor, resolutions, table_size: int):
+    """(idx [..., L, 2]: the rows of the x0 and x1 corners in the flattened
+    [L*T] quad table; w [..., L, 8] ordered (cx, quad lane), so w[..., 4 cx
+    + q] weighs lane q of gathered row cx, quad lanes (y0, z0), (y0, z1),
+    (y1, z0), (y1, z1))."""
+    x = torch.clamp(x, 0.0, 1.0)
+    idx_levels, w_levels = [], []
+    for level, res in enumerate(resolutions):
+        res = int(res)
+        cell, frac = _level_cells(x, res)
+        base = _quad_base_index(cell, res, table_size)
+        x1 = base + _oct_offsets(res, table_size)[4]
+        if not _is_dense(res, table_size):  # dense rows stay within the block
+            x1 = x1 & (table_size - 1)
+        idx_levels.append(torch.stack([base, x1], dim=-1) + level * table_size)
+        fx, fy, fz = frac.unbind(-1)
+        wq = [(1.0 - fy) * (1.0 - fz), (1.0 - fy) * fz, fy * (1.0 - fz), fy * fz]
+        w_levels.append(torch.stack([(1.0 - fx) * q for q in wq] + [fx * q for q in wq], dim=-1))
+    return torch.stack(idx_levels, dim=-2), torch.stack(w_levels, dim=-2)
+
+
+def _gather_quad(phys: torch.Tensor, idx: torch.Tensor, n_feats: int) -> torch.Tensor:
+    """The two gathered quad rows per (point, level) as [..., L, 8, F]."""
+    rows = phys.reshape(-1, 4 * n_feats)[idx]  # [..., L, 2, 4F]
+    return rows.reshape(rows.shape[:-2] + (8, n_feats))
+
+
+def encode_quad(x, table, resolutions, table_size: int, phys=None):
+    """Hash-encode through the quad layout (two gathers per point and
+    level); `phys` from `build_quad_table`, or built here."""
+    idx, w_all = _quad_indices_weights(x, resolutions, table_size)
+    if phys is None:
+        phys = build_quad_table(table, resolutions, table_size)
+    return _blend_levels(_gather_quad(phys, idx, table.shape[-1]), w_all)
+
+
+def _quad_dx(x: torch.Tensor, resolutions, s: torch.Tensor) -> torch.Tensor:
+    """dL/dx from per-corner sums s [..., L, 8] in (cx, quad lane) order:
+    w[4 cx + q] = wx[cx] wq[q] with wx = (1 - fx, fx) and wq = ((1-fy)(1-fz),
+    (1-fy) fz, fy (1-fz), fy fz)."""
+    xc = torch.clamp(x, 0.0, 1.0)
+    dx = torch.zeros_like(x)
+    for level, res in enumerate(resolutions):
+        r = float(res)
+        _, frac = _level_cells(xc, int(res))
+        fx, fy, fz = frac.unbind(-1)
+        sl = s[..., level, :].reshape(s.shape[:-2] + (2, 4))  # [..., cx, q]
+        wq = torch.stack([(1 - fy) * (1 - fz), (1 - fy) * fz, fy * (1 - fz), fy * fz], dim=-1)
+        wx = torch.stack([1.0 - fx, fx], dim=-1)
+        gx = r * torch.sum(wq * (sl[..., 1, :] - sl[..., 0, :]), dim=-1)
+        dwq_dfy = torch.stack([-(1 - fz), -fz, (1 - fz), fz], dim=-1)
+        dwq_dfz = torch.stack([-(1 - fy), (1 - fy), -fy, fy], dim=-1)
+        gy = r * torch.sum(wx[..., :, None] * dwq_dfy[..., None, :] * sl, dim=(-2, -1))
+        gz = r * torch.sum(wx[..., :, None] * dwq_dfz[..., None, :] * sl, dim=(-2, -1))
+        dx = dx + torch.stack([gx, gy, gz], dim=-1)
+    return torch.where((x > 0.0) & (x < 1.0), dx, 0.0)
+
+
+# ---- oct and osplit layouts ----------------------------------------------
+
+
 def _oct_local_indices_weights(x: torch.Tensor, resolutions, table_size: int):
     """(idx per level [...] into that level's table, w [..., L, 8])."""
     x = torch.clamp(x, 0.0, 1.0)
@@ -133,71 +286,124 @@ def _oct_local_indices_weights(x: torch.Tensor, resolutions, table_size: int):
     return idx_levels, torch.stack(w_levels, dim=-2)
 
 
-def _blend(rows, w_all: torch.Tensor, n_feats: int) -> torch.Tensor:
-    """Trilinear blend in f32 of gathered bf16 rows -> [..., L*F]."""
-    outs = []
-    for level, r in enumerate(rows):
-        feats = r.to(torch.float32).reshape(r.shape[:-1] + (8, n_feats))
-        outs.append(torch.sum(w_all[..., level, :, None] * feats, dim=-2))
-    return torch.cat(outs, dim=-1)
+def _oct_indices_weights(x: torch.Tensor, resolutions, table_size: int):
+    """(idx [..., L] rows of the concatenated trimmed oct table, w [..., L, 8])."""
+    idx_levels, w_all = _oct_local_indices_weights(x, resolutions, table_size)
+    starts = np.cumsum([0] + _oct_level_rows(resolutions, table_size)[:-1])
+    return torch.stack([i + int(s) for i, s in zip(idx_levels, starts)], dim=-1), w_all
+
+
+def encode_oct(x, table, resolutions, table_size: int, phys=None):
+    """Hash-encode through the oct layout (one gather per point and level
+    from one f32 table); `phys` from `build_oct_table`, or built here."""
+    idx, w_all = _oct_indices_weights(x, resolutions, table_size)
+    if phys is None:
+        phys = build_oct_table(table, resolutions, table_size)
+    rows = phys[idx]  # [..., L, 8F]
+    return _blend_levels(rows.reshape(rows.shape[:-1] + (8, table.shape[-1])), w_all)
+
+
+def _level_feats(rows, n_feats: int) -> torch.Tensor:
+    """Per-level gathered bf16 rows [..., 8F] -> f32 corner features [..., L, 8, F]."""
+    feats = torch.stack(rows, dim=-2).to(torch.float32)
+    return feats.reshape(feats.shape[:-1] + (8, n_feats))
 
 
 def encode_oct_split(x, table, resolutions, table_size: int, phys=None):
     """Hash-encode unit-cube points [..., 3] -> [..., L*F] through the
     per-level bf16 physical tables (`phys` from `build_oct_tables_split`, or
-    built here). Plain autograd would differentiate it with a scatter-add;
-    training uses `OctSplitEncode`."""
+    built here)."""
     idx_levels, w_all = _oct_local_indices_weights(x, resolutions, table_size)
     if phys is None:
         phys = build_oct_tables_split(table, resolutions, table_size)
     rows = [phys[level][idx] for level, idx in enumerate(idx_levels)]
-    return _blend(rows, w_all, table.shape[-1])
+    return _blend_levels(_level_feats(rows, table.shape[-1]), w_all)
 
 
-def _oct_split_row_sums(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Sums of `vals` [m, lanes] per row id `idx` [m] in [0, n_rows), scatter-free.
-
-    Each value is rounded to bf16 first, as in the reference. The values are
-    sorted by row and prefix-summed in f32 (K2a on the GPU); with
-    b_r = #(idx <= r), row r's sum is csum[b_r - 1] - csum[b_{r-1} - 1]. The
-    reference finds b_r with two sentinel sorts; `searchsorted` on the
-    sorted ids gives the same integers.
-    """
-    lanes = vals.shape[-1]
-    vals = vals.to(torch.bfloat16)
-    sorted_idx, order = torch.sort(idx)
-    csum = prefix_scan.cumsum(vals[order].to(torch.float32))
-    rows = torch.arange(n_rows, device=idx.device, dtype=sorted_idx.dtype)
-    b = torch.searchsorted(sorted_idx, rows, right=True)
-    ge = torch.where((b > 0)[:, None], csum[torch.clamp(b - 1, min=0)], 0.0)
-    return ge - torch.cat([ge.new_zeros((1, lanes)), ge[:-1]], dim=0)
+# ---- row sums ------------------------------------------------------------
 
 
-def _oct_split_row_sums_merged(idx: torch.Tensor, vals: torch.Tensor,
-                               n_rows: int) -> torch.Tensor:
-    """The same row sums by the reference's "merged" pipeline.
+def _cumsum_rows(v: torch.Tensor) -> torch.Tensor:
+    """torch.cumsum of [n, lanes] along n, one lane at a time: on the GPU
+    PyTorch scans a 1-D tensor with CUB, while a scan along the long axis of
+    a narrow 2-D array runs a handful of threads per lane."""
+    return torch.stack([torch.cumsum(v[:, j].contiguous(), dim=0) for j in range(v.shape[1])],
+                       dim=1)
 
-    One sort over m + n_rows keys interleaves data keys 2 idx with one
-    sentinel key 2 r + 1 per row; the bf16-rounded values gathered in that
-    order (sentinels carry 0) are prefix-summed in f32 (K2a on the GPU), so
-    the prefix at row r's sentinel is the total of rows <= r. A stable
-    partition finds the sentinels, and row sums are adjacent differences.
-    The reference selects it with an environment switch; here only the
-    osplit backward probe calls it, and training keeps `_oct_split_row_sums`.
-    """
+
+def _sentinel_row_sums(idx: torch.Tensor, vals: torch.Tensor, n_rows: int, scan) -> torch.Tensor:
+    """Sums of `vals` [m, lanes] per row id `idx` [m] in [0, n_rows), by the
+    reference's sentinel pipeline: one stable sort of the data keys 2 idx
+    and one sentinel key 2 r + 1 per row; the values gathered in that order
+    (sentinels carry 0) and prefix-summed in f32 by `scan`, so the prefix at
+    row r's sentinel is the total of rows <= r; a stable partition moves
+    the sentinels (in row order) to the front; row sums are adjacent
+    differences. The reference's variants differ in which operands ride
+    their sorts; a torch sort returns a permutation and values follow by
+    one gather, so all are this function."""
     m, lanes = vals.shape
-    vals = vals.to(torch.bfloat16)
     rows = torch.arange(n_rows, device=idx.device, dtype=idx.dtype)
     sorted_keys, pos = torch.sort(torch.cat([idx * 2, rows * 2 + 1]), stable=True)
     gathered = vals[torch.clamp(pos, max=m - 1)].to(torch.float32)
-    csum = prefix_scan.cumsum(torch.where((pos < m)[:, None], gathered, 0.0))
+    csum = scan(torch.where((pos < m)[:, None], gathered, 0.0))
     _, order = torch.sort((sorted_keys & 1) ^ 1, stable=True)
     at_sentinel = csum[order[:n_rows]]
     return at_sentinel - torch.cat([at_sentinel.new_zeros((1, lanes)), at_sentinel[:-1]], dim=0)
 
 
+def _sorted_row_sums(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Row sums of the corner and quad table gradients (the reference's
+    `_sorted_row_sums` and `_sorted_row_sums_gather`), scanned in f32 with
+    torch.cumsum."""
+    return _sentinel_row_sums(idx, vals, n_rows, _cumsum_rows)
+
+
+def _segment_sums(sorted_idx: torch.Tensor, csum: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Row sums from row ids sorted ascending and the prefix sums of their
+    values in that order: with b_r = #(idx <= r), row r's sum is
+    csum[b_r - 1] - csum[b_{r-1} - 1]. The reference finds b_r with two
+    sentinel sorts; `searchsorted` on the sorted ids gives the same integers."""
+    rows = torch.arange(n_rows, device=sorted_idx.device, dtype=sorted_idx.dtype)
+    b = torch.searchsorted(sorted_idx, rows, right=True)
+    ge = torch.where((b > 0)[:, None], csum[torch.clamp(b - 1, min=0)], 0.0)
+    return ge - torch.cat([ge.new_zeros((1, csum.shape[-1])), ge[:-1]], dim=0)
+
+
+def _oct_split_row_sums(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Sums of `vals` [m, lanes] per row id `idx` [m] in [0, n_rows), scatter-free.
+
+    Each value is first rounded to bf16, as in the reference; the values
+    sorted by row are prefix-summed in f32 (K2a on the GPU) and differenced
+    at the segment ends.
+    """
+    sorted_idx, order = torch.sort(idx)
+    vals = vals.to(torch.bfloat16)[order].to(torch.float32)
+    return _segment_sums(sorted_idx, prefix_scan.cumsum(vals), n_rows)
+
+
+def _oct_split_row_sums_merged(idx: torch.Tensor, vals: torch.Tensor,
+                               n_rows: int) -> torch.Tensor:
+    """The same row sums by the reference's "merged" pipeline: one sort
+    interleaving data and sentinel keys, one scan (K2a on the GPU) over
+    m + n_rows rows. Only the osplit backward probe calls it."""
+    return _sentinel_row_sums(idx, vals.to(torch.bfloat16), n_rows, prefix_scan.cumsum)
+
+
+def _fold(packed: torch.Tensor, offsets, table_size: int, n_feats: int) -> torch.Tensor:
+    """Fold physical-row sums [rows, len(offsets) F] back onto the canonical
+    level [T, F]: canonical row j collects lane c of physical row
+    j - offsets[c]. Trimmed dense levels are padded back to T first; their
+    wrapped rows land on that zero padding."""
+    p = F.pad(packed, (0, 0, 0, table_size - packed.shape[0]))
+    acc = p[:, :n_feats]
+    for lane, o in enumerate(offsets[1:], start=1):
+        acc = acc + torch.roll(p[:, lane * n_feats:(lane + 1) * n_feats], o, dims=0)
+    return acc
+
+
 def _trilinear_dx(x: torch.Tensor, resolutions, s: torch.Tensor) -> torch.Tensor:
-    """dL/dx from per-corner sums s [..., L, 8]: dw/dx_d = res sign_d prod_{d' != d} f_d'."""
+    """dL/dx from per-corner sums s [..., L, 8] in lane order:
+    dw/dx_d = res sign_d prod_{d' != d} f_d'."""
     xc = torch.clamp(x, 0.0, 1.0)
     sign = torch.where(_corner_bits(x.device), 1.0, -1.0)  # [8, 3]
     dx = torch.zeros_like(x)
@@ -212,8 +418,21 @@ def _trilinear_dx(x: torch.Tensor, resolutions, s: torch.Tensor) -> torch.Tensor
     return torch.where(in_range, dx, 0.0)
 
 
+def _corner_sums(g_lf: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """s [..., L, 8] = sum_F g [..., L, F] feats [..., L, 8, F]: the
+    cotangent of the weights."""
+    return torch.sum(g_lf[..., None, :] * feats, dim=-1)
+
+
+def _cotangent(g: torch.Tensor, n_levels: int, n_feats: int) -> torch.Tensor:
+    return g.to(torch.float32).reshape(g.shape[:-1] + (n_levels, n_feats))
+
+
+# ---- sorted-gradient encodings ------------------------------------------
+
+
 class OctSplitEncode(torch.autograd.Function):
-    """encode_oct_split with the sorted-segment table gradient (K2a inside)."""
+    """encode_oct_split with the per-level sorted-segment table gradient (16 K2a)."""
 
     @staticmethod
     def forward(ctx, x, table, resolutions, table_size):
@@ -223,7 +442,7 @@ class OctSplitEncode(torch.autograd.Function):
         ctx.save_for_backward(x, w_all, *idx_levels, *rows)
         ctx.resolutions, ctx.table_size = tuple(int(r) for r in resolutions), table_size
         ctx.table_shape = table.shape
-        return _blend(rows, w_all, table.shape[-1])
+        return _blend_levels(_level_feats(rows, table.shape[-1]), w_all)
 
     @staticmethod
     def backward(ctx, g):
@@ -231,25 +450,112 @@ class OctSplitEncode(torch.autograd.Function):
         resolutions, table_size = ctx.resolutions, ctx.table_size
         n_levels, _, n_feats = ctx.table_shape
         idx_levels, rows = saved[:n_levels], saved[n_levels:]
-        g_lf = g.to(torch.float32).reshape(g.shape[:-1] + (n_levels, n_feats))
+        g_lf = _cotangent(g, n_levels, n_feats)
         level_rows = _oct_level_rows(resolutions, table_size)
-        canon, s_levels = [], []
+        canon = []
         for level, res in enumerate(resolutions):
-            g_l = g_lf[..., level, :]
-            vals = (w_all[..., level, :, None] * g_l[..., None, :]).reshape(-1, 8 * n_feats)
+            vals = (w_all[..., level, :, None] * g_lf[..., level, None, :]).reshape(-1, 8 * n_feats)
             seg = _oct_split_row_sums(idx_levels[level].reshape(-1), vals, level_rows[level])
-            p = F.pad(seg, (0, 0, 0, table_size - level_rows[level]))
-            acc = p[:, :n_feats]
-            for lane, o in enumerate(_oct_offsets(res, table_size)[1:], start=1):
-                acc = acc + torch.roll(p[:, lane * n_feats:(lane + 1) * n_feats], o, dims=0)
-            canon.append(acc)
-            if ctx.needs_input_grad[0]:
-                feats = rows[level].to(torch.float32).reshape(rows[level].shape[:-1] + (8, n_feats))
-                s_levels.append(torch.sum(g_l[..., None, :] * feats, dim=-1))
+            canon.append(_fold(seg, _oct_offsets(res, table_size), table_size, n_feats))
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = _trilinear_dx(x, resolutions, torch.stack(s_levels, dim=-2))
+            dx = _trilinear_dx(x, resolutions, _corner_sums(g_lf, _level_feats(rows, n_feats)))
         return dx, torch.stack(canon), None, None
+
+
+class OctEncode(torch.autograd.Function):
+    """encode_oct with one sorted-segment table gradient over all levels:
+    one data sort, one value gather, one K2a scan of [points x L, 8F] in
+    f32, the segment ends, and a roll fold per level."""
+
+    @staticmethod
+    def forward(ctx, x, table, resolutions, table_size):
+        idx, w_all = _oct_indices_weights(x, resolutions, table_size)
+        rows = build_oct_table(table, resolutions, table_size)[idx]  # [..., L, 8F]
+        ctx.save_for_backward(x, idx, w_all, rows)
+        ctx.resolutions, ctx.table_size = tuple(int(r) for r in resolutions), table_size
+        ctx.table_shape = table.shape
+        return _blend_levels(rows.reshape(rows.shape[:-1] + (8, table.shape[-1])), w_all)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, w_all, rows = ctx.saved_tensors
+        resolutions, table_size = ctx.resolutions, ctx.table_size
+        n_levels, _, n_feats = ctx.table_shape
+        g_lf = _cotangent(g, n_levels, n_feats)
+        level_rows = _oct_level_rows(resolutions, table_size)
+        vals = (w_all[..., None] * g_lf[..., None, :]).reshape(-1, 8 * n_feats)
+        sorted_idx, order = torch.sort(idx.reshape(-1), stable=True)
+        seg = _segment_sums(sorted_idx, prefix_scan.cumsum(vals[order]), sum(level_rows))
+        canon = [_fold(p, _oct_offsets(res, table_size), table_size, n_feats)
+                 for p, res in zip(torch.split(seg, level_rows), resolutions)]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            s = _corner_sums(g_lf, rows.reshape(rows.shape[:-1] + (8, n_feats)))
+            dx = _trilinear_dx(x, resolutions, s)
+        return dx, torch.stack(canon), None, None
+
+
+class QuadEncode(torch.autograd.Function):
+    """encode_quad with the sorted-segment gradient over the quad rows,
+    folded back by four rolls; the analytic (cx, quad lane) dx."""
+
+    @staticmethod
+    def forward(ctx, x, table, resolutions, table_size):
+        idx, w_all = _quad_indices_weights(x, resolutions, table_size)
+        feats = _gather_quad(build_quad_table(table, resolutions, table_size), idx,
+                             table.shape[-1])
+        ctx.save_for_backward(x, idx, w_all, feats)
+        ctx.resolutions, ctx.table_size = tuple(int(r) for r in resolutions), table_size
+        ctx.table_shape = table.shape
+        return _blend_levels(feats, w_all)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, w_all, feats = ctx.saved_tensors
+        resolutions, table_size = ctx.resolutions, ctx.table_size
+        n_levels, _, n_feats = ctx.table_shape
+        g_lf = _cotangent(g, n_levels, n_feats)
+        vals = (w_all[..., None] * g_lf[..., None, :]).reshape(-1, 4 * n_feats)
+        pg = _sorted_row_sums(idx.reshape(-1), vals, n_levels * table_size)
+        pg = pg.reshape(n_levels, table_size, 4 * n_feats)
+        canon = [_fold(pg[level], _oct_offsets(res, table_size)[:4], table_size, n_feats)
+                 for level, res in enumerate(resolutions)]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _quad_dx(x, resolutions, _corner_sums(g_lf, feats))
+        return dx, torch.stack(canon), None, None
+
+
+class CornerEncode(torch.autograd.Function):
+    """encode (corner hash) with the sorted-segment gradient over the
+    canonical rows; the analytic trilinear dx."""
+
+    @staticmethod
+    def forward(ctx, x, table, resolutions, table_size):
+        idx, w_all = _corner_indices_weights(x, resolutions, table_size)
+        feats = table.reshape(-1, table.shape[-1])[idx]  # [..., L, 8, F]
+        ctx.save_for_backward(x, idx, w_all, feats)
+        ctx.resolutions = tuple(int(r) for r in resolutions)
+        ctx.table_shape = table.shape
+        return _blend_levels(feats, w_all)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, w_all, feats = ctx.saved_tensors
+        n_levels, table_size, n_feats = ctx.table_shape
+        g_lf = _cotangent(g, n_levels, n_feats)
+        vals = (w_all[..., None] * g_lf[..., None, :]).reshape(-1, n_feats)
+        dtable = _sorted_row_sums(idx.reshape(-1), vals, n_levels * table_size)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _trilinear_dx(x, ctx.resolutions, _corner_sums(g_lf, feats))
+        return dx, dtable.reshape(ctx.table_shape), None, None
+
+
+_ENCODE = {"osplit": encode_oct_split, "oct": encode_oct, "quad": encode_quad}
+_SORTED = {"osplit": OctSplitEncode, "oct": OctEncode, "quad": QuadEncode}
+_PREPARE = {"osplit": build_oct_tables_split, "oct": build_oct_table, "quad": build_quad_table}
 
 
 class HashGridEncoding(nn.Module):
@@ -272,14 +578,19 @@ class HashGridEncoding(nn.Module):
         super().__init__()
         if layout not in LAYOUTS:
             raise ValueError(f"unknown hash-grid layout {layout!r}; expected one of {LAYOUTS}")
-        if layout == "osplit" and pack_rows > 1:
-            raise ValueError("layout='osplit' is incompatible with pack_rows>1")
-        if layout != "osplit":
-            raise NotImplementedError(f"hash-grid layout {layout!r} is not ported yet")
-        if grad_mode not in ("auto", "sorted"):
-            raise NotImplementedError(f"grad_mode={grad_mode!r} is not ported yet")
+        if layout != "corner" and pack_rows > 1:
+            # The packed path reads indices under the corner hash.
+            raise ValueError(f"layout={layout!r} is incompatible with pack_rows>1 (the packed "
+                             "path uses the corner hash); set pack_rows=0 or layout='corner'")
+        if grad_mode not in GRAD_MODES:
+            raise ValueError(f"unknown grad_mode {grad_mode!r}; expected one of {GRAD_MODES}")
+        self.layout = layout
+        self.sorted_grad = grad_mode != "scatter"
         self.compute_dtype = mathx.as_dtype(compute_dtype)
         self.table_size = 2**log2_table_size
+        # A pack that does not divide L*T is off, as in the reference.
+        pack = max(pack_rows, 0)
+        self.pack_rows = pack if pack > 1 and (n_levels * self.table_size) % pack == 0 else 0
         self.resolutions = tuple(
             int(r) for r in level_resolutions(n_levels, base_resolution, max_resolution)
         )
@@ -291,15 +602,26 @@ class HashGridEncoding(nn.Module):
         return self.table.shape[0] * self.table.shape[2]
 
     def prepare(self):
-        """The per-level physical tables, for repeated encodes of frozen weights."""
+        """The packed physical table(s), for repeated encodes of frozen
+        weights; None for the corner layout (nothing to pack)."""
+        if self.layout == "corner":
+            return None
         with torch.no_grad():
-            return build_oct_tables_split(self.table, self.resolutions, self.table_size)
+            return _PREPARE[self.layout](self.table, self.resolutions, self.table_size)
 
     def forward(self, x, prepared=None):
-        if prepared is not None:
-            out = encode_oct_split(x, self.table, self.resolutions, self.table_size, prepared)
+        args = (x, self.table, self.resolutions, self.table_size)
+        if self.layout == "corner":
+            if self.sorted_grad and not self.pack_rows:
+                out = CornerEncode.apply(*args)
+            else:
+                out = encode(*args, pack_rows=self.pack_rows)
+        elif prepared is not None:
+            out = _ENCODE[self.layout](*args, prepared)
+        elif self.sorted_grad:
+            out = _SORTED[self.layout].apply(*args)
         else:
-            out = OctSplitEncode.apply(x, self.table, self.resolutions, self.table_size)
+            out = _ENCODE[self.layout](*args)
         return out.to(self.compute_dtype)
 
 

@@ -12,8 +12,9 @@ can then run the field only on its valid sample slots
 Random draws (jitter, refreshed cells) come from a `torch.Generator`;
 `update_grid` also takes the cells and the jitter from its caller, so a
 test can feed it the reference's draws. `calc_dt` spaces the iterative eval
-renderer's candidates. Morton codes and `mark_invisible_cells` are not
-ported yet.
+renderer's candidates. `mark_invisible_cells` culls the cells no training
+camera sees (nothing in the train loop calls it, as in the reference), and
+`morton3d` / `morton3d_invert` are the reference's Z-order codes.
 """
 
 from __future__ import annotations
@@ -27,6 +28,48 @@ SQRT3 = float(np.sqrt(3.0))
 # The compaction sort key puts invalid slots after valid ones with this
 # offset, as the reference does; the plan is exact for max_samples <= 256.
 _INVALID_KEY = 256
+
+
+# Morton codes: the reference's uint32 arithmetic in int64. Every mask
+# constant lies within 32 bits, so masking after each multiply also wraps it
+# to uint32 as the reference's does.
+_U32 = 0xFFFFFFFF
+
+
+def _expand_bits(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of v so they occupy every 3rd bit."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    return (v * 0x00000005) & 0x49249249
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> int32 with the reference's wraparound."""
+    v = v & _U32
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def morton3d(coords: torch.Tensor) -> torch.Tensor:
+    """[..., 3] integer grid coords (10 bits each) -> int32 Z-order index."""
+    c = coords.to(torch.int64) & _U32
+    code = _expand_bits(c[..., 0]) | (_expand_bits(c[..., 1]) << 1) | (_expand_bits(c[..., 2]) << 2)
+    return _as_int32(code)
+
+
+def _compact_bits(v: torch.Tensor) -> torch.Tensor:
+    v = v & 0x49249249
+    v = (v ^ (v >> 2)) & 0xC30C30C3
+    v = (v ^ (v >> 4)) & 0x0F00F00F
+    v = (v ^ (v >> 8)) & 0xFF0000FF
+    return (v ^ (v >> 16)) & 0x000003FF
+
+
+def morton3d_invert(codes: torch.Tensor) -> torch.Tensor:
+    """Inverse of morton3d: int32 Z-order index -> [..., 3] int32 coords."""
+    c = codes.to(torch.int64) & _U32
+    return torch.stack([_compact_bits(c), _compact_bits(c >> 1), _compact_bits(c >> 2)],
+                       dim=-1).to(torch.int32)
 
 
 def num_cascades(scale: float) -> int:
@@ -139,6 +182,41 @@ def update_grid(
         0, flat, torch.clamp(sigma.reshape(-1), min=0.0), "amax", include_self=True
     )
     return torch.where(density_grid < 0, density_grid, updated.reshape(c, n_cells))
+
+
+def mark_invisible_cells(density_grid: torch.Tensor, camtoworlds: torch.Tensor,
+                         intrinsics: torch.Tensor, width: int, height: int, scale: float,
+                         near: float = 0.01, chunk: int = 262_144) -> torch.Tensor:
+    """Cull the cells no training camera sees: every cell centre of every
+    cascade is projected into every camera (`camtoworlds` [N, 3, 4], OpenGL
+    convention: the camera looks down -z; `intrinsics` [3, 3]) in chunks of
+    `chunk` cells; a cell in front of no camera's image gets the sentinel -1,
+    which `update_grid` keeps. Returns a new grid [C, R^3]."""
+    c, n_cells = density_grid.shape
+    dev = density_grid.device
+    resolution = grid_resolution(density_grid)
+    cells = torch.arange(n_cells, device=dev)
+    coords = torch.stack([cells // (resolution * resolution), (cells // resolution) % resolution,
+                          cells % resolution], dim=-1).to(torch.float32)
+    u = (coords + 0.5) / resolution - 0.5
+    extents = torch.as_tensor(cascade_extents(scale), dtype=torch.float32, device=dev)
+    rot, t = camtoworlds[:, :3, :3], camtoworlds[:, :3, 3]
+    fx, fy, cx, cy = intrinsics[0, 0], intrinsics[1, 1], intrinsics[0, 2], intrinsics[1, 2]
+    new_grid = density_grid.clone()
+    for ci in range(c):
+        pts = u * 2.0 * extents[ci]
+        visible = torch.zeros(n_cells, dtype=torch.bool, device=dev)
+        for start in range(0, n_cells, chunk):
+            rel = pts[None, start:start + chunk, :] - t[:, None, :]
+            cam = torch.einsum("nij,nki->nkj", rot, rel)  # R^T (p - t)
+            z = -cam[..., 2]
+            depth = torch.clamp(z, min=near)
+            x = fx * (cam[..., 0] / depth) + cx
+            y = -fy * (cam[..., 1] / depth) + cy
+            seen = (z > near) & (x >= 0) & (x < width) & (y >= 0) & (y < height)
+            visible[start:start + chunk] = seen.any(dim=0)
+        new_grid[ci] = torch.where(visible, new_grid[ci], -1.0)
+    return new_grid
 
 
 def mean_density(density_grid: torch.Tensor) -> torch.Tensor:

@@ -156,7 +156,10 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def clip_gradients(model: torch.nn.Module, config: Config):
-    """Per-top-level-module value then norm clipping, in place."""
+    """Per-top-level-module value then norm clipping, in place: each child
+    of the model is a group, as each top-level Flax module is in the
+    reference (NGP's `field`, and `pose_dR` and `pose_dT` under
+    `optimize_ext`)."""
     if config.grad_max_val <= 0 and config.grad_max_norm <= 0:
         return
     for _, module in model.named_children():

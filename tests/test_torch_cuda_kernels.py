@@ -101,6 +101,53 @@ def test_prefix_scan_matches_plain(cuda_device, shape):
     assert float(((got - want).abs() / scale).max()) < 1e-5
 
 
+OCT_SCAN_SHAPE = (4194304, 16)  # the oct layout's one scan: 262,144 points x 16 levels
+
+
+def test_prefix_scan_at_the_oct_shape(cuda_device):
+    """K2a where the oct layout's gradient runs it, once a step, against
+    torch.cumsum and a float64 scan, relative to the running |x| sum."""
+    x = torch.randn(OCT_SCAN_SHAPE, generator=torch.Generator(device=cuda_device).manual_seed(5),
+                    device=cuda_device)
+    prefix_scan.reset_launch_counts()
+    got = prefix_scan.cumsum(x)
+    assert prefix_scan.LAUNCHES == 1
+    ref = torch.cumsum(x.double().t().contiguous(), dim=1).t()
+    scale = torch.cumsum(x.abs().double().t().contiguous(), dim=1).t() + 1.0
+    assert float(((got.double() - ref).abs() / scale).max()) < 1e-5
+    want = prefix_scan.cumsum_plain(x)
+    assert float(((got - want).abs() / scale).max()) < 2e-5
+
+
+def test_oct_sorted_gradient_matches_its_scatter_gradient(cuda_device):
+    """The oct layout at full width (L16, F2, T 2^19) on 262,144 points: one
+    K2a launch at [4194304, 16] for the sorted table gradient, which agrees
+    with autograd's scatter gradient to 1e-4 of the largest entry (a row is
+    the difference of two f32 prefix sums, which reach ~10x the largest
+    row; one f32 ulp of a prefix 800x the row is 1e-4 of it)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    kw = dict(n_levels=16, n_features=2, log2_table_size=19, base_resolution=16,
+              max_resolution=2048, layout="oct")
+    sorted_enc = hashgrid.HashGridEncoding(**kw).to(cuda_device)
+    scatter_enc = hashgrid.HashGridEncoding(**kw, grad_mode="scatter").to(cuda_device)
+    with torch.no_grad():
+        sorted_enc.table.normal_(0.0, 1e-2, generator=gen)
+        scatter_enc.table.copy_(sorted_enc.table)
+    x = torch.rand((262144, 3), generator=gen, device=cuda_device)
+    g = torch.randn((262144, 32), generator=gen, device=cuda_device)
+    prefix_scan.reset_launch_counts()
+    out = sorted_enc(x)
+    (out * g).sum().backward()
+    assert prefix_scan.LAUNCHES == 1
+    out_scatter = scatter_enc(x)
+    (out_scatter * g).sum().backward()
+    assert prefix_scan.LAUNCHES == 1
+    torch.testing.assert_close(out, out_scatter, rtol=0, atol=0)
+    want = scatter_enc.table.grad
+    atol = 1e-4 * float(want.abs().max())
+    assert float((sorted_enc.table.grad - want).abs().max()) <= atol
+
+
 def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
     gen = torch.Generator().manual_seed(0)
     enc = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,

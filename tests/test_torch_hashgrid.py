@@ -157,12 +157,17 @@ def test_encoding_module_options():
                                 base_resolution=4, max_resolution=64, generator=gen)
     assert enc.table.shape == (L, T, F) and enc.resolutions == RES
     assert enc.table.abs().max() <= 1e-4 and enc.out_dim == L * F
+    # Every layout and gradient mode builds (tests/test_torch_ngp_layouts.py
+    # holds them against the reference); unknown values and a pack on the
+    # osplit layout raise.
     for layout in ("oct", "quad", "corner"):
-        with pytest.raises(NotImplementedError):
-            t_hg.HashGridEncoding(layout=layout)
+        assert t_hg.HashGridEncoding(n_levels=L, log2_table_size=LOG2_T,
+                                     layout=layout).layout == layout
+    assert not t_hg.HashGridEncoding(n_levels=L, log2_table_size=LOG2_T,
+                                     grad_mode="scatter").sorted_grad
     with pytest.raises(ValueError):
         t_hg.HashGridEncoding(layout="nope")
     with pytest.raises(ValueError):
         t_hg.HashGridEncoding(pack_rows=64)
-    with pytest.raises(NotImplementedError):
-        t_hg.HashGridEncoding(grad_mode="scatter")
+    with pytest.raises(ValueError):
+        t_hg.HashGridEncoding(grad_mode="nope")

@@ -140,3 +140,21 @@ def test_the_scene_reader_and_camera_modules_are_checked(module):
     assert module in _port_modules()
     path = REPO / (module.replace(".", "/") + ".py")
     assert not BANNED.search(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.ops.hashgrid",
+    "outdoor_nerf_depth_torch.ops.occupancy",
+    "outdoor_nerf_depth_torch.ops.prefix_scan",
+    "outdoor_nerf_depth_torch.models.ngp",
+    "outdoor_nerf_depth_torch.train.step",
+    "outdoor_nerf_depth_torch.probes.ngp_layout",
+])
+def test_the_ngp_layout_and_option_modules_are_checked(module):
+    """The modules of the hash layouts, the HDR field, extrinsics
+    refinement, the visibility cull and the layout probe are among those
+    the tests above import with the reference stack blocked and scan for
+    its names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())

@@ -1,6 +1,6 @@
 """The kernel probes' port: the "merged" hash-table row sums against the
 reference package's (selected there by ONDT_OSPLIT_ROWSUMS=merged) and the
-port's own row sums, and both probes' entry points at tiny sizes on the CPU."""
+port's own row sums, and the probes' entry points at tiny sizes on the CPU."""
 
 import json
 import math
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from outdoor_nerf_depth_torch.ops import hashgrid as t_hg
-from outdoor_nerf_depth_torch.probes import gather_attack, osplit_bwd
+from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bwd
 from outdoor_nerf_depth_tpu.ops import hashgrid as j_hg
 
 torch.set_num_threads(1)
@@ -83,3 +83,22 @@ def test_probes_default_to_cuda():
         gather_attack.run()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         osplit_bwd.main([])
+
+
+LAYOUT_KEYS = {"fwd_s", "fwd_bwd_s", "launches", "full"}
+
+
+def test_ngp_layout_probe_on_cpu(tmp_path):
+    out = tmp_path / "layouts.json"
+    ngp_layout.main(["--device", "cpu", "--samples", "512", "--log2t", "10", "--batch", "64",
+                     "--grid-res", "16", "--reps", "1", "--step-reps", "1", "--out", str(out)])
+    results = json.loads(out.read_text())
+    assert results["backend"] == "cpu" and results["samples"] == 512
+    for layout in ngp_layout.LAYOUTS:
+        assert LAYOUT_KEYS <= set(results[layout]), layout
+        assert results[layout]["launches"]["K2a"] == {"calls": 2, "launches": 0}
+        _times_ok(results[layout])
+        _times_ok(results[layout]["full"])
+        assert results[layout]["full"]["rays_per_sec"] > 0
+    with pytest.raises(SystemExit):
+        ngp_layout.main(["--device", "cpu", "--layouts", "oct,nope"])
