@@ -138,6 +138,27 @@ non-zero without the final line:
               (ms, culled cells, border flips against the CPU); the NGP
               quality gate (600 steps) under corner and oct, its thresholds
               asserted; probes.ngp_layout.run() at full size
+  mip_options the mip-NeRF 360 options on the kitti fixture at the flagship's
+              full width (NerfMLP 8x1024, PropMLP 4x256, 64/64/32 samples,
+              batch 4096): the flagship, NeRF++ and NGP for 10 steps each
+              under their own rgb loss and under rawnerf's (ms a step of each,
+              finite losses); Ref-NeRF (density and predicted normals, the
+              integrated directional encoding of degree 5, reflections,
+              roughness, n.v, density and bottleneck noise 0.1, normals in
+              the proposal MLPs, the orientation and predicted-normal losses
+              at Ref-NeRF's mults) for 20 steps in float32 and in bf16 (ms a
+              step, peak memory, every loss term, the angle between density
+              and predicted normals before and after training); the float32
+              run's first forward and backward on 256 rays on the card, on the
+              CPU and on the CPU with the field MLPs in float64 (colours,
+              normals, every parameter's gradient: the card no further from
+              the float64 run than 4x the CPU's float32) and the nerf level's
+              K1a weights against the plain version; Ref-NeRF
+              under remat=dots for 5 steps (6 K1a, 3 K1b a step; its first
+              loss against none's); GLO (4 features) with learned exposure
+              for 20 steps, then a test view rendered before and after the
+              embeddings are perturbed, which must be equal (eval uses
+              neither); cylinder rays for 10 steps; 3 K1a and 3 K1b a mip step
   blender     configs/blender_ngp.json at full width (hash grid L16 F2
               T2^19, 128 samples, 512 candidates, batch 8192, white
               background) on a Synthetic-NeRF-shaped layout written by
@@ -176,7 +197,7 @@ from outdoor_nerf_depth_torch.data import rays as rays_lib  # noqa: E402
 from outdoor_nerf_depth_torch.depth_priors import generate, stereo  # noqa: E402
 from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  # noqa: E402
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
-from outdoor_nerf_depth_torch.ops import volren_weights  # noqa: E402
+from outdoor_nerf_depth_torch.ops import refdirs, volren, volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bwd  # noqa: E402
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib  # noqa: E402
 from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
@@ -323,6 +344,24 @@ LAYOUT_CHECK_POINTS = 4096
 LAYOUT_FWD_RTOL, LAYOUT_GRAD_RTOL = 1e-5, 1e-4
 GATE_LAYOUTS = ("corner", "oct")
 CULL_FLIP_SHARE = 1e-4
+# Phase mip_options: the mip-NeRF 360 options on the kitti fixture at the
+# flagship's full width. The Ref-NeRF field options, with both noises on so
+# that both draws run, and normals in the proposal MLPs too (the
+# orientation loss reads every level).
+REFNERF_NERF = {"compute_density_normals": True, "enable_pred_normals": True,
+                "use_directional_enc": True, "deg_view": 5, "use_reflections": True,
+                "enable_pred_roughness": True, "use_n_dot_v": True, "density_noise": 0.1,
+                "bottleneck_noise": 0.1}
+REFNERF_PROP = {"compute_density_normals": True, "enable_pred_normals": True}
+# The loss mults of multinerf's configs/blender_refnerf.gin (Ref-NeRF).
+REFNERF_LOSSES = {"orientation_loss_mult": 0.1, "orientation_coarse_loss_mult": 0.01,
+                  "orientation_loss_target": "normals_pred", "predicted_normal_loss_mult": 3e-4,
+                  "predicted_normal_coarse_loss_mult": 3e-5}
+OPTION_STEPS, OPTION_REMAT_STEPS, OPTION_SHORT_STEPS = 20, 5, 10
+OPTION_CPU_RAYS = 256
+# Card against CPU, one forward and backward of 256 rays from the same
+# weights (see _card_against_cpu): colours at 1e-4 absolute.
+OPTION_CPU_ATOL = 1e-4
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -2449,6 +2488,263 @@ def phase_ngp_layouts(root):
     return launches
 
 
+def _options_config(root, label, steps, path=CONFIG, scene="dtu_format", model=None,
+                    nerf=None, prop=None, **fields):
+    """`path` on the kitti fixture for `steps` steps, with `model`, `nerf` and
+    `prop` merged into its model_params, nerf_mlp_params and prop_mlp_params,
+    and `fields` replaced."""
+    config = load_config(path, [f"scene_dir={os.path.join(root, scene)}", f"max_steps={steps}",
+                                "print_every=1", f"exp_dir={os.path.join(root, 'opt_' + label)}"])
+    mp = copy.deepcopy(config.model_params)
+    mp.update(model or {})
+    if nerf or prop:
+        mp["nerf_mlp_params"] = dict(mp["nerf_mlp_params"], **(nerf or {}))
+        mp["prop_mlp_params"] = dict(mp["prop_mlp_params"], **(prop or {}))
+    return config.replace(model_params=mp, **fields)
+
+
+def _options_run(label, config, expect, steps, ngp=False):
+    """train() from scratch with its launches asserted; (model, record)."""
+    model, history, counted, seconds, peak = _train_phase(config)
+    if counted != expect:
+        raise AssertionError(f"mip_options {label}: launches {counted}, expected {expect}")
+    _check_history(history, steps)
+    step_ms, steady = (_without_refresh_ms if ngp else _steady_ms)(config, history)
+    losses = lambda e: {k: v for k, v in e.items() if k.startswith("loss")}
+    return model, {"steps": steps, "seconds": seconds, "step_ms": step_ms,
+                   ("median_step_ms_without_refresh" if ngp else "median_step_ms_after_first"):
+                   steady, "max_memory_allocated_bytes": peak, "launches": counted,
+                   "launches_per_step": {k: v / steps for k, v in counted.items() if v},
+                   "losses_first_step": losses(history[0]),
+                   "losses_last_step": losses(history[-1])}
+
+
+def _option_rays(config, device, n=None):
+    """A train batch of the config's dataset on `device`, its pixels cast."""
+    dataset = build_dataset(config, "train")
+    batch = dataset.sample_batch()
+    if n is not None:
+        batch = rays_lib.map_fields(lambda x: x[:n], batch)
+    batch = rays_lib.to_device(batch, device)
+    rays = batch.rays
+    if isinstance(rays, rays_lib.Pixels):
+        rays = cameras_lib.cast_pixels(rays, dataset.cameras_on(device), dataset.camtype)
+    return batch, rays
+
+
+def _normal_mae(model, rays):
+    """Weighted mean angle between the nerf level's density normals and its
+    predicted normals, by compositing weight, in degrees."""
+    with torch.no_grad():
+        _, history = model(rays, train_frac=1.0, zero_glo=False)
+    last = history[-1]
+    return float(refdirs.weighted_mae_degrees(last["weights"], last["normals"],
+                                              last["normals_pred"]))
+
+
+def _forward_backward(config, model, batch, rays):
+    """One forward, loss and backward of the train step's model and loss
+    (deterministic sampling); the renders, histories and gradients."""
+    model.zero_grad(set_to_none=True)
+    forward = step_lib.make_forward(config, model, compute_extras=True)
+    renderings, history = forward(rays, 0.5, None)
+    loss_terms, _ = step_lib._total_loss(config, batch, renderings, history, rays)
+    sum(loss_terms.values()).backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return renderings, history, grads
+
+
+def _as_float64(obj):
+    return rays_lib.map_fields(lambda x: x.double() if x.is_floating_point() else x, obj)
+
+
+def _option_errors(got, ref):
+    """Errors of one forward and backward against another: colours and
+    composited normals (max abs), per-sample normals (mean abs by
+    compositing weight), each parameter's gradient (L2 relative to its
+    norm); `ref` holds the weights."""
+    errors = {"rgb": 0.0, "composited_normals": 0.0, "weighted_sample_normals": 0.0}
+    for (r_got, h_got), (r_ref, h_ref) in zip(zip(got[0], got[1]), zip(ref[0], ref[1])):
+        errors["rgb"] = max(errors["rgb"], float(
+            (r_got["rgb"].detach().cpu().double() - r_ref["rgb"].detach().double()).abs().max()))
+        w = h_ref["weights"].detach().double()
+        for key in ("normals", "normals_pred"):
+            errors["composited_normals"] = max(errors["composited_normals"], float(
+                (r_got[key].detach().cpu().double() - r_ref[key].detach().double()).abs().max()))
+            diff = (h_got[key].detach().cpu().double() - h_ref[key].detach().double()).abs()
+            errors["weighted_sample_normals"] = max(errors["weighted_sample_normals"], float(
+                (w * diff.amax(-1)).sum() / w.sum()))
+    grads = {n: float((got[2][n].double() - g.double()).norm() / g.double().norm().clamp(min=1e-30))
+             for n, g in ref[2].items()}
+    if set(got[2]) != set(ref[2]) or not all(math.isfinite(v) for v in grads.values()):
+        raise AssertionError("card against CPU: gradients missing or non-finite")
+    worst = max(grads, key=grads.get)
+    errors["grad_rel_of_norm"] = grads[worst]
+    return errors, worst
+
+
+def _card_against_cpu(config, init_model):
+    """The Ref-NeRF step's forward and backward on 256 rays from the same
+    weights: on the card, on the CPU in float32 (K1's plain version), and on
+    the CPU with the field MLPs (encodings, layers and the density gradient)
+    in float64, the heads' outputs and K1 still rounded to float32. The
+    density normal differentiates IPE features of frequency up to 2^11
+    through 8 layers of width 1024, whose terms cancel, so float32 keeps
+    only some of its digits: the card's error against that reference is held
+    to 4x the CPU float32 error's (plus 1e-6), and its colours to 1e-4 of
+    the CPU's. Then the nerf level's K1a weights on those rays against the
+    plain version on the card."""
+    batch, rays = _option_rays(config, "cpu", OPTION_CPU_RAYS)
+    card_batch, card_rays = (rays_lib.to_device(x, "cuda") for x in (batch, rays))
+    card = _forward_backward(config, copy.deepcopy(init_model).cuda(), card_batch, card_rays)
+    cpu = _forward_backward(config, copy.deepcopy(init_model).cpu(), batch, rays)
+    reference = copy.deepcopy(init_model).cpu().double()
+    for module in reference.modules():  # the field MLPs and their layers in float64
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = torch.float64
+    f64 = _forward_backward(config, reference, _as_float64(batch), _as_float64(rays))
+    card_err, card_worst = _option_errors(card, f64)
+    cpu_err, cpu_worst = _option_errors(cpu, f64)
+    card_cpu, _ = _option_errors(card, cpu)
+    bad = {k: (v, cpu_err[k]) for k, v in card_err.items() if v > 4 * cpu_err[k] + 1e-6}
+    if bad or card_cpu["rgb"] > OPTION_CPU_ATOL:
+        raise AssertionError(f"card against CPU: {bad}, card vs CPU float32 {card_cpu}")
+    last = card[1][-1]
+    tau = volren.optical_depth(last["density"].detach(), last["tdist"], card_rays.directions,
+                               init_model.opaque_background)
+    kernel, _ = volren_weights.weights_fwd_cuda(tau.contiguous())
+    plain, _ = volren_weights.weights_from_tau_plain(tau)
+    k1a_err = float((kernel - plain).abs().max())
+    if k1a_err > FWD_ATOL or not torch.equal(kernel, last["weights"].detach()):
+        raise AssertionError(f"card against CPU: K1a weights off the plain version by {k1a_err}")
+    return {"rays": OPTION_CPU_RAYS, "card_vs_float64": card_err,
+            "card_worst_grad_param": card_worst, "cpu_float32_vs_float64": cpu_err,
+            "cpu_worst_grad_param": cpu_worst, "card_vs_cpu_float32": card_cpu,
+            "tolerance": "card vs float64 <= 4 x CPU float32 vs float64 + 1e-6; "
+                         f"rgb card vs CPU float32 <= {OPTION_CPU_ATOL}",
+            "nerf_level_k1a_vs_plain_max_abs_err": k1a_err, "k1a_shape": list(tau.shape)}
+
+
+def phase_mip_options(root):
+    """The mip-NeRF 360 options at the flagship's full width on the kitti
+    fixture: the rawnerf loss on each backend, Ref-NeRF in float32 and bf16,
+    the card against the CPU, remat, GLO with learned exposure and cylinder
+    rays; launches asserted per run. One JSON line a part, then a summary."""
+    launches, ms = {}, {}
+    k1 = lambda steps, k1a=3: _only(K1a=k1a * steps, K1b=3 * steps)
+
+    def part(name, record):
+        emit({"phase": "mip_options", "part": name, **record})
+
+    # The backends under their own rgb loss and under rawnerf's.
+    for backend, path, scene in (("mip", CONFIG, "dtu_format"),
+                                 ("nerfpp", NERFPP_CONFIG, "nerfpp"),
+                                 ("ngp", NGP_CONFIG, "dtu_format")):
+        steps = OPTION_SHORT_STEPS
+        expect = {"mip": k1(steps), "nerfpp": _only(), "ngp": _ngp_launches(steps)}[backend]
+        key = "median_step_ms_without_refresh" if backend == "ngp" else "median_step_ms_after_first"
+        own = load_config(path).data_loss_type
+        for kind in (own, "rawnerf"):
+            label = f"{backend}_{kind}"
+            config = _options_config(root, label, steps, path, scene, data_loss_type=kind)
+            model, record = _options_run(label, config, expect, steps, ngp=backend == "ngp")
+            if not math.isfinite(record["losses_last_step"]["loss_data"]):
+                raise AssertionError(f"mip_options {label}: non-finite data loss")
+            ms[label] = record[key]
+            record["ms_over_own_loss"] = record[key] / ms[f"{backend}_{own}"]
+            launches[f"mip_options_{label}"] = record["launches"]
+            part(label, {"config": path, "data_loss_type": config.data_loss_type, **record})
+            del model
+            torch.cuda.empty_cache()
+    flagship_ms = ms["mip_charb"]
+
+    # Ref-NeRF, float32 then bf16.
+    for dtype in ("float32", "bfloat16"):
+        label = f"refnerf_{dtype}"
+        config = _options_config(root, label, OPTION_STEPS, nerf=REFNERF_NERF,
+                                 prop=REFNERF_PROP, compute_dtype=dtype, **REFNERF_LOSSES)
+        init = step_lib.build_model(config, torch.Generator().manual_seed(config.seed)).cuda()
+        _, rays = _option_rays(config, "cuda")
+        mae_first = _normal_mae(init, rays)
+        model, record = _options_run(label, config, k1(OPTION_STEPS), OPTION_STEPS)
+        record["normal_mae_degrees"] = {"before_first_step": mae_first,
+                                        "after_last_step": _normal_mae(model, rays)}
+        ms[label] = record["median_step_ms_after_first"]
+        record["ms_over_flagship"] = ms[label] / flagship_ms
+        for term in ("loss_orientation", "loss_predicted_normals"):
+            if term not in record["losses_last_step"]:
+                raise AssertionError(f"mip_options {label}: no {term}")
+        launches[f"mip_options_{label}"] = record["launches"]
+        part(label, {"nerf_mlp_params": config.model_params["nerf_mlp_params"],
+                     "prop_mlp_params": config.model_params["prop_mlp_params"],
+                     **REFNERF_LOSSES, **record})
+        del model
+        torch.cuda.empty_cache()
+        if dtype == "float32":
+            part("card_against_cpu", _card_against_cpu(config, init.cpu()))
+            remat_config = config.replace(remat="dots", max_steps=OPTION_REMAT_STEPS,
+                                          exp_dir=config.exp_dir + "_remat")
+            model, remat = _options_run("refnerf_remat", remat_config,
+                                        k1(OPTION_REMAT_STEPS, k1a=6), OPTION_REMAT_STEPS)
+            none_loss = record["losses_first_step"]
+            remat["first_step_loss_rel_diff_to_none"] = {
+                k: abs(v - none_loss[k]) / max(abs(none_loss[k]), 1e-30)
+                for k, v in remat["losses_first_step"].items()}
+            remat["none"] = {k: record[k] for k in ("median_step_ms_after_first",
+                                                     "max_memory_allocated_bytes")}
+            if max(remat["first_step_loss_rel_diff_to_none"].values()) > 1e-4:
+                raise AssertionError(f"remat=dots first step off none's: {remat}")
+            ms["refnerf_remat_dots"] = remat["median_step_ms_after_first"]
+            launches["mip_options_refnerf_remat"] = remat["launches"]
+            part("refnerf_remat_dots", remat)
+            del model
+            torch.cuda.empty_cache()
+        del init
+
+    # GLO and learned exposure: eval uses neither.
+    config = _options_config(root, "glo", OPTION_STEPS,
+                             model={"num_glo_features": 4, "learned_exposure_scaling": True})
+    model, glo = _options_run("glo", config, k1(OPTION_STEPS), OPTION_STEPS)
+    launches["mip_options_glo"] = glo["launches"]
+    ms["glo_exposure"] = glo["median_step_ms_after_first"]
+    glo["ms_over_flagship"] = ms["glo_exposure"] / flagship_ms
+    glo["exposure_offset_max_abs_after_training"] = float(
+        model.exposure_scaling.weight.detach().abs().max())
+    view = build_dataset(config, "test").image_batch(0)
+    _, rays = _option_rays(config, "cuda", 4096)
+    with torch.no_grad():
+        first = step_lib.render_image(model, view, config.render_chunk_size, "cuda")
+        trained_rgb = model(rays, zero_glo=False)[0][-1]["rgb"]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        model.glo.weight.add_(torch.randn(model.glo.weight.shape, generator=gen, device="cuda"))
+        model.exposure_scaling.weight.add_(0.5)
+        second = step_lib.render_image(model, view, config.render_chunk_size, "cuda")
+        perturbed_rgb = model(rays, zero_glo=False)[0][-1]["rgb"]
+    if set(first) != set(second) or not all(np.array_equal(first[k], second[k]) for k in first):
+        raise AssertionError("glo: the eval render moved with the GLO and exposure embeddings")
+    if torch.equal(trained_rgb, perturbed_rgb):
+        raise AssertionError("glo: the perturbed embeddings changed nothing in training")
+    glo["eval_render_equal_after_perturbation"] = True
+    glo["train_rgb_max_change_after_perturbation"] = float(
+        (trained_rgb - perturbed_rgb).abs().max())
+    part("glo_exposure", glo)
+    del model
+    torch.cuda.empty_cache()
+
+    config = _options_config(root, "cylinder", OPTION_SHORT_STEPS, model={"ray_shape": "cylinder"})
+    model, cylinder = _options_run("cylinder", config, k1(OPTION_SHORT_STEPS), OPTION_SHORT_STEPS)
+    ms["cylinder"] = cylinder["median_step_ms_after_first"]
+    cylinder["ms_over_flagship"] = ms["cylinder"] / flagship_ms
+    launches["mip_options_cylinder"] = cylinder["launches"]
+    part("cylinder", cylinder)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "mip_options", "config": CONFIG, "median_step_ms": ms,
+          "over_flagship": {k: v / flagship_ms for k, v in ms.items() if not k.startswith(
+              ("ngp", "nerfpp"))}})
+    return launches
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -2467,7 +2763,7 @@ def summary(k, launches):
                      "blender_eval")
         return sum(counts[kernel] for p, counts in launches.items()
                    if p in main_path or p.startswith(("cameras_", "depth_losses_",
-                                                      "ngp_layouts_")))
+                                                      "ngp_layouts_", "mip_options_")))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
@@ -2477,7 +2773,9 @@ def summary(k, launches):
                            "test-view and camera-path renders (phase eval_render), the "
                            "quality gate's mip and NGP runs (phase gate), mip on lens-distorted "
                            "and fisheye cameras (phase cameras), mip and NGP under the mse, urf "
-                           "and nll depth losses (phase depth_losses) and NGP on the Blender "
+                           "and nll depth losses (phase depth_losses), mip under the Ref-NeRF, "
+                           "GLO, exposure, cylinder and rawnerf options and NGP under rawnerf "
+                           "(phase mip_options) and NGP on the Blender "
                            "layout, trained and evaluated (phase blender)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     oct_path = f"{OCT_SCAN_PATH[0]}x{OCT_SCAN_PATH[1]}"
@@ -2510,7 +2808,8 @@ def summary(k, launches):
          "launches_note": "NGP train runs on the synthetic scene and the KITTI fixture, "
                           "float32 and bf16, the NGP quality gate (phase gate), NGP under the "
                           "mse, urf and nll depth losses (phase depth_losses), on the "
-                          "Blender layout (phase blender), and the oct layout's one scan a step "
+                          "Blender layout (phase blender), NGP under its own loss and rawnerf's "
+                          "(phase mip_options), and the oct layout's one scan a step "
                           "and osplit's HDR field with extrinsics refinement (phase "
                           "ngp_layouts)",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
@@ -2589,6 +2888,7 @@ def main():
         launches.update(phase_cameras(root))
         launches.update(phase_depth_losses(root))
         launches.update(phase_ngp_layouts(root))
+        launches.update(phase_mip_options(root))
     launches.update(phase_lpips())
     launches.update(phase_gate())
     launches.update(phase_blender())

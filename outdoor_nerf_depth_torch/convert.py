@@ -6,7 +6,8 @@ each Flax `Dense` is an `nn.Linear` of the same name; a Dense kernel is
 [in, out] and a Linear weight is [out, in]. A module that lists
 `flax_dense_names` (NeRF++'s `PointFieldMLP`) takes Flax's auto-named
 `Dense_{i}` as its i-th named layer. A Flax `Embed` (`embedding`, NeRF++'s
-autoexposure, NGP's `pose_dR`/`pose_dT`) is an `nn.Embedding` weight and,
+autoexposure, NGP's `pose_dR`/`pose_dT`, mip-NeRF 360's `glo` and
+`exposure_scaling`) is an `nn.Embedding` weight and,
 like the hash-grid table (`field/encoder/table`, [L, T, F]), is copied as
 it is.
 

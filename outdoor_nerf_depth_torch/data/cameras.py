@@ -8,7 +8,10 @@ the cast of pixels to rays in torch, on whichever device the tensors live
 (the train step casts on the GPU). `ray_origins_and_viewdirs_np` is the
 reference's numpy cast, kept bit for bit for the scene tracer of fixtures.
 The render paths (`generate_ellipse_path`, `generate_spiral_path`,
-`generate_spline_path`, around `focus_point`) are the reference's numpy.
+`generate_spline_path`, around `focus_point`), the NGP-style pose
+normalization (`normalize_poses_min_norm`) and the two-view epipolar
+helpers (`fundamental_matrix`, `epipolar_line`) are the reference's numpy;
+`rays_to_ndc` maps rays to normalized device coordinates in torch.
 The cast takes perspective and fisheye cameras, with or without the OpenCV
 radial (k1..k4) and tangential (p1, p2) lens distortion, which it inverts
 by Newton steps.
@@ -234,6 +237,60 @@ def normalize_poses_pca(poses: np.ndarray):
     new_poses[:, :3, 3] *= scale
     transform = np.diag([scale] * 3 + [1.0]) @ transform
     return new_poses, transform
+
+
+def normalize_poses_min_norm(poses: np.ndarray, points: Optional[np.ndarray] = None):
+    """NGP-style normalization: premultiply every pose by the inverse of the
+    average camera frame (`average_pose`, rotation and translation), then
+    divide the translations by the smallest camera distance, so the nearest
+    camera sits at unit distance. Returns (poses [N, 3, 4], scale); depths
+    divide by `scale`."""
+    avg = np.eye(4)
+    avg[:3] = average_pose(poses, points)
+    bottom = np.broadcast_to(np.array([0.0, 0.0, 0.0, 1.0]), (len(poses), 1, 4))
+    homo = np.concatenate([poses[:, :3, :4], bottom], axis=1)
+    out = (np.linalg.inv(avg) @ homo)[:, :3]
+    scale = float(np.linalg.norm(out[:, :3, 3], axis=-1).min())
+    out = out.copy()
+    out[:, :3, 3] /= scale
+    return out, scale
+
+
+def rays_to_ndc(origins: torch.Tensor, directions: torch.Tensor, pixtocam, near: float = 1.0):
+    """Map world-space rays into normalized device coordinates (NeRF's
+    Appendix C, for forward-facing scenes): a pinhole camera at the identity
+    pose looking down -z. Origins slide to the near plane, then the t = 0
+    and t = inf points are projected, so `origins_ndc + s * directions_ndc`
+    for s in [0, 1] spans the frustum from the near plane to infinity (NDC z
+    from -1 to 1). The returned directions are not unit length."""
+    t_near = -(near + origins[..., 2]) / directions[..., 2]
+    origins = origins + t_near[..., None] * directions
+    ox, oy, oz = origins.unbind(-1)
+    dx, dy, dz = directions.unbind(-1)
+    # 1 / cx' and 1 / cy' of the NDC viewport: pixtocam[0, 2] = -cx / f.
+    xmult = 1.0 / float(pixtocam[0, 2])
+    ymult = 1.0 / float(pixtocam[1, 2])
+    origins_ndc = torch.stack([xmult * ox / oz, ymult * oy / oz, -torch.ones_like(oz)], dim=-1)
+    infinity_ndc = torch.stack([xmult * dx / dz, ymult * dy / dz, torch.ones_like(oz)], dim=-1)
+    return origins_ndc, infinity_ndc - origins_ndc
+
+
+def fundamental_matrix(K1, w2c1, K2, w2c2) -> np.ndarray:
+    """F with x2^T F x1 = 0 for corresponding homogeneous pixels: the
+    relative pose from camera 1 to camera 2, the essential matrix [t]x R,
+    lifted to pixels through the inverse intrinsics."""
+    rel = np.asarray(w2c2) @ np.linalg.inv(np.asarray(w2c1))
+    R, t = rel[:3, :3], rel[:3, 3]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    return np.linalg.inv(np.asarray(K2)).T @ (tx @ R) @ np.linalg.inv(np.asarray(K1))
+
+
+def epipolar_line(pixel_xy, F) -> np.ndarray:
+    """The line (a, b, c), ax + by + c = 0, in image 2 of a pixel of image 1,
+    scaled so (a, b) is a unit vector."""
+    x = np.array([pixel_xy[0], pixel_xy[1], 1.0])
+    line = np.asarray(F) @ x
+    return line / (np.linalg.norm(line[:2]) + 1e-12)
 
 
 def pose_scale(transform: np.ndarray) -> float:

@@ -5,10 +5,19 @@ per level, weight dilation, Schlick annealing, interval resampling in
 normalized s-space, the s->t warp, cone->Gaussian casting, the field MLP,
 compositing weights (CUDA kernel K1 on the GPU) and the volumetric render.
 
-Randomness (the per-level stratified jitter and a random background) comes
-from the `generator` passed to `forward`; `generator=None` is the
-deterministic path. GLO embeddings and learned exposure are not ported in
-this slice and raise NotImplementedError.
+Randomness (the per-level stratified jitter, the field MLPs' density and
+bottleneck noise, and a random background) comes from the `generator`
+passed to `forward`; `generator=None` is the deterministic path.
+
+Per-image appearance: a GLO embedding (`glo`, `num_glo_features` wide) whose
+row for the ray's camera joins the nerf MLP's view input, and learned
+exposure scaling (`exposure_scaling`, three offsets per camera, starting at
+zero) that multiplies the rendered colour by 1 + offset. Both are used only
+with `zero_glo=False`, as in training; `zero_glo=True` (the default, for
+evaluation on cameras the embeddings never saw) feeds the nerf MLP a zero
+GLO vector and scales nothing. Unlike the reference's `init_state`, which
+initializes the model with `zero_glo=True` and so never creates these
+embeddings, the port's model owns them from construction.
 """
 
 from __future__ import annotations
@@ -56,9 +65,7 @@ class ProposalModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if num_glo_features > 0 or learned_exposure_scaling:
-            raise NotImplementedError("GLO and learned exposure are not ported yet")
-        del num_glo_embeddings, use_gather_resampling, vis_num_rays  # no effect here
+        del use_gather_resampling  # the port resamples through one searchsorted path
         self.num_prop_samples = num_prop_samples
         self.num_nerf_samples = num_nerf_samples
         self.num_levels = num_levels
@@ -76,14 +83,25 @@ class ProposalModel(nn.Module):
         self.resample_padding = resample_padding
         self.opaque_background = opaque_background
         self.bg_intensity_range = tuple(bg_intensity_range)
+        self.num_glo_features = num_glo_features
+        self.learned_exposure_scaling = learned_exposure_scaling
+        self.vis_num_rays = vis_num_rays
 
         common = dict(warp="contract", use_viewdirs=use_viewdirs,
                       compute_dtype=compute_dtype, generator=generator)
-        self.nerf_mlp = ConeFieldMLP(**common, **(nerf_mlp_params or {}))
+        self.nerf_mlp = ConeFieldMLP(num_glo_features=num_glo_features, **common,
+                                     **(nerf_mlp_params or {}))
         self.prop_mlp = (
             self.nerf_mlp if single_mlp
             else ConeFieldMLP(disable_rgb=True, **common, **(prop_mlp_params or {}))
         )
+        if num_glo_features > 0:
+            # Flax `Embed`'s default init: N(0, 1 / features).
+            self.glo = nn.Embedding(num_glo_embeddings, num_glo_features)
+            nn.init.normal_(self.glo.weight, std=num_glo_features**-0.5, generator=generator)
+        if learned_exposure_scaling:
+            self.exposure_scaling = nn.Embedding(num_glo_embeddings, 3)
+            nn.init.zeros_(self.exposure_scaling.weight)
 
     def forward(
         self,
@@ -91,11 +109,27 @@ class ProposalModel(nn.Module):
         train_frac: float = 1.0,
         compute_extras: bool = False,
         generator: Optional[torch.Generator] = None,
+        zero_glo: bool = True,
     ):
         """Render `rays` (a `data.rays.Rays` of tensors on one device).
 
         Returns (renderings, ray_history): one dict per level, finest last.
+        With `compute_extras` each rendering also holds the composited
+        normals and roughness the fields give, and `ray_sdist`,
+        `ray_weights` and `ray_rgbs` of the first `vis_num_rays` rays (the
+        proposal levels' colours are the final level's composited colour).
+        `zero_glo=False` uses the GLO and exposure embeddings of the rays'
+        cameras.
         """
+        cam_idx = rays.cam_idx[..., 0].long()
+        glo_vec = None
+        if self.num_glo_features > 0:
+            glo_vec = (torch.zeros(rays.origins.shape[:-1] + (self.num_glo_features,),
+                                   dtype=torch.float32, device=rays.origins.device)
+                       if zero_glo else self.glo(cam_idx))
+        exposure_scale = None
+        if self.learned_exposure_scaling and not zero_glo:
+            exposure_scale = 1.0 + self.exposure_scaling(cam_idx)
         _, s_to_t = spaces.metric_to_normalized(self.raydist_fn, rays.near, rays.far)
         if self.near_anneal_rate is None:
             s_near = 0.0
@@ -156,7 +190,8 @@ class ProposalModel(nn.Module):
                 covs = torch.zeros_like(covs)
 
             mlp = self.prop_mlp if is_prop else self.nerf_mlp
-            field = mlp(means, covs, viewdirs=rays.viewdirs if self.use_viewdirs else None)
+            field = mlp(means, covs, viewdirs=rays.viewdirs if self.use_viewdirs else None,
+                        glo_vec=None if is_prop else glo_vec, generator=generator)
             weights = volren.composite_weights(
                 field["density"], tdist, rays.directions,
                 opaque_background=self.opaque_background,
@@ -174,12 +209,27 @@ class ProposalModel(nn.Module):
                 )
 
             rendering = volren.composite(
-                field["rgb"], weights, tdist, bg_rgbs, rays.far, compute_extras
+                field["rgb"], weights, tdist, bg_rgbs, rays.far, compute_extras,
+                extras={k: field[k] for k in ("normals", "normals_pred", "roughness")},
             )
             if rays.exposure_values is not None:
                 rendering["rgb"] = rendering["rgb"] * rays.exposure_values
+            if exposure_scale is not None:
+                rendering["rgb"] = rendering["rgb"] * exposure_scale
+            if compute_extras:
+                n = self.vis_num_rays
+                rendering["ray_sdist"] = sdist.reshape(-1, sdist.shape[-1])[:n]
+                rendering["ray_weights"] = weights.reshape(-1, weights.shape[-1])[:n]
+                rendering["ray_rgbs"] = field["rgb"].reshape((-1,) + field["rgb"].shape[-2:])[:n]
             renderings.append(rendering)
             ray_history.append(
-                dict(sdist=sdist, tdist=tdist, weights=weights, density=field["density"])
+                dict(sdist=sdist, tdist=tdist, weights=weights, density=field["density"],
+                     normals=field["normals"], normals_pred=field["normals_pred"])
             )
+        if compute_extras:
+            # The proposal levels have no colour: show the final level's.
+            final = renderings[-1]
+            final_rgb = torch.sum(final["ray_rgbs"] * final["ray_weights"][..., None], dim=-2)
+            for r in renderings[:-1]:
+                r["ray_rgbs"] = final_rgb[:, None, :].expand(r["ray_rgbs"].shape)
         return renderings, ray_history

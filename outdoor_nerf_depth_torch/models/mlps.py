@@ -1,43 +1,38 @@
 """The field MLPs: mip-NeRF 360's cone-Gaussian IPE MLP and NeRF++'s point MLP.
 
-Port of `ConeFieldMLP` (with the options the flagship configuration uses)
-and `PointFieldMLP` from the reference package's `models/mlps.py`. Each
-layer is an `nn.Linear` whose weight is the transpose of the Flax `Dense`
-kernel. `ConeFieldMLP`'s layer names map one to one onto the Flax
-module's: `trunk{i}`, `density_head`, `bottleneck`, `view{i}` and
-`rgb_head`; its weights start He-uniform. `PointFieldMLP`'s Flax layers
-are auto-named `Dense_{i}` in the order they are made, which
-`flax_dense_names` lists; its weights start Xavier-uniform. Biases start
-at zero.
+Port of `ConeFieldMLP` and `PointFieldMLP` from the reference package's
+`models/mlps.py`. Each layer is an `nn.Linear` whose weight is the
+transpose of the Flax `Dense` kernel. `ConeFieldMLP`'s layer names map one
+to one onto the Flax module's: `trunk{i}`, `density_head`, `normal_head`,
+`roughness_head`, `bottleneck`, `view{i}` and `rgb_head`; its weights start
+He-uniform. `PointFieldMLP`'s Flax layers are auto-named `Dense_{i}` in the
+order they are made, which `flax_dense_names` lists; its weights start
+Xavier-uniform. Biases start at zero.
+
+`ConeFieldMLP` carries the Ref-NeRF options: density-gradient normals (the
+gradient of the raw density with respect to the Gaussians' means, taken
+inside the forward, so the loss differentiates through it), predicted
+normals and roughness, the integrated directional encoding, reflection
+directions and n.v, and it adds density and bottleneck noise when it is
+given a generator, and a GLO vector to the view MLP's input.
 
 A bfloat16 `compute_dtype` runs every layer in bfloat16 the way a Flax
 `Dense(dtype=bfloat16)` does (`Dense` below): the parameters stay float32,
-the inputs are cast where the reference casts them, and the density and
-rgb heads return to float32 before their activations.
-
-Not ported in this slice (they raise NotImplementedError): the Ref-NeRF
-options (density or predicted normals, integrated directional encoding,
-reflections, roughness, n.v), density and bottleneck noise and GLO vectors.
+the inputs are cast where the reference casts them, and the density, normal,
+roughness and rgb heads return to float32 before their activations.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
-from outdoor_nerf_depth_torch.ops import mathx, spaces
-
-_REF_NERF_OPTIONS = (
-    "compute_density_normals",
-    "enable_pred_normals",
-    "use_directional_enc",
-    "use_reflections",
-    "enable_pred_roughness",
-    "use_n_dot_v",
-)
+from outdoor_nerf_depth_torch.ops import mathx, refdirs, spaces
 
 
 class Dense(nn.Linear):
@@ -99,22 +94,20 @@ class ConeFieldMLP(nn.Module):
         basis_subdivisions: int = 2,
         disable_rgb: bool = False,
         num_glo_features: int = 0,
+        compute_density_normals: bool = False,
+        enable_pred_normals: bool = False,
+        use_directional_enc: bool = False,
+        use_reflections: bool = False,
+        enable_pred_roughness: bool = False,
+        roughness_bias: float = -1.0,
+        use_n_dot_v: bool = False,
         use_viewdirs: bool = True,
         compute_dtype: str = "float32",
         generator: Optional[torch.Generator] = None,
-        **ref_nerf_options,
     ):
         super().__init__()
-        unknown = set(ref_nerf_options) - set(_REF_NERF_OPTIONS) - {"roughness_bias"}
-        if unknown:
-            raise TypeError(f"unknown ConeFieldMLP options {sorted(unknown)}")
-        unported = [k for k in _REF_NERF_OPTIONS if ref_nerf_options.get(k)]
-        if density_noise > 0 or bottleneck_noise > 0:
-            unported.append("density_noise/bottleneck_noise")
-        if num_glo_features > 0:
-            unported.append("num_glo_features")
-        if unported:
-            raise NotImplementedError(f"ConeFieldMLP options not ported yet: {unported}")
+        if use_reflections and not (compute_density_normals or enable_pred_normals):
+            raise ValueError("reflection conditioning requires normals")
         if warp not in (None, "contract"):
             raise ValueError(f"unknown warp {warp!r}")
 
@@ -123,17 +116,32 @@ class ConeFieldMLP(nn.Module):
         self.skip_layer_dir = skip_layer_dir
         self.min_deg_point, self.max_deg_point = min_deg_point, max_deg_point
         self.deg_view = deg_view
-        self.density_bias = density_bias
+        self.density_bias, self.density_noise = density_bias, density_noise
         self.rgb_premultiplier, self.rgb_bias = rgb_premultiplier, rgb_bias
         self.rgb_padding = rgb_padding
+        self.bottleneck_noise = bottleneck_noise
         self.warp = warp
         self.disable_rgb = disable_rgb
         self.bottleneck_width = bottleneck_width
+        self.compute_density_normals = compute_density_normals
+        self.enable_pred_normals = enable_pred_normals
+        self.use_directional_enc = use_directional_enc
+        self.use_reflections = use_reflections
+        self.enable_pred_roughness = enable_pred_roughness
+        self.roughness_bias = roughness_bias
+        self.use_n_dot_v = use_n_dot_v
         self.use_viewdirs = use_viewdirs
         self.compute_dtype = dtype = mathx.as_dtype(compute_dtype)
+        self.density_passes = None  # set by `reuse_density_passes`
         self.register_buffer(
             "basis", spaces.sphere_basis(basis_shape, basis_subdivisions), persistent=False
         )
+        if use_directional_enc:
+            self.dir_enc_fn = refdirs.generate_ide_fn(deg_view)
+            dir_dim = 2 * refdirs._ide_tables(deg_view)[0].shape[1]
+        else:
+            self.dir_enc_fn = lambda d, _: spaces.pos_enc(d, 0, deg_view, append_identity=True)
+            dir_dim = 3 + 6 * deg_view
 
         enc_dim = 2 * self.basis.shape[1] * (max_deg_point - min_deg_point)
         x_dim = enc_dim
@@ -144,6 +152,10 @@ class ConeFieldMLP(nn.Module):
             self.trunk_names.append(name)
             x_dim = net_width + (enc_dim if i % skip_layer == 0 and i > 0 else 0)
         self.density_head = _dense(x_dim, 1, generator, compute_dtype=dtype)
+        if enable_pred_normals:
+            self.normal_head = _dense(x_dim, 3, generator, compute_dtype=dtype)
+        if enable_pred_roughness:
+            self.roughness_head = _dense(x_dim, 1, generator, compute_dtype=dtype)
         if disable_rgb:
             return
         y_dim = 0
@@ -151,7 +163,10 @@ class ConeFieldMLP(nn.Module):
             self.bottleneck = _dense(x_dim, bottleneck_width, generator, compute_dtype=dtype)
             y_dim += bottleneck_width
         if use_viewdirs:
-            y_dim += 3 + 6 * deg_view  # pos_enc(viewdirs, 0, deg_view) with identity
+            y_dim += dir_dim
+            if use_n_dot_v and (compute_density_normals or enable_pred_normals):
+                y_dim += 1
+        y_dim += num_glo_features
         skip_dim = y_dim
         self.view_names = []
         for i in range(net_depth_viewdirs):
@@ -177,10 +192,63 @@ class ConeFieldMLP(nn.Module):
                 x = torch.cat([x, skip_in], dim=-1)
         return self.density_head(x)[..., 0].to(torch.float32), x
 
-    def forward(self, means, covs, viewdirs=None):
-        """means [..., S, 3], covs [..., S, 3, 3], viewdirs [..., 3] -> dict."""
-        raw_density, x = self.predict_density(means, covs)
-        out = {"density": F.softplus(raw_density + self.density_bias)}
+    def _density_and_normals(self, means, covs):
+        """Raw density, trunk features and the density-gradient normals.
+
+        raw_density_i depends on means_i alone, so one backward of the sum
+        gives each point's gradient. With grad mode on (training), the
+        gradient keeps its graph and the loss differentiates through it;
+        under no_grad (evaluation) it is taken locally and detached.
+
+        Inside a checkpointed forward (remat, `reuse_density_passes`) the
+        pass keeps its own saved tensors (taking the gradient would
+        otherwise unpack tensors the checkpoint dropped and recompute the
+        region in the middle of the forward) and runs outside any dispatch
+        mode, so `remat="dots"` neither caches nor counts its ops; the
+        recompute in the backward replays its outputs instead of running it.
+        """
+        cache = self.density_passes
+        if cache is not None and cache.replay:
+            return cache.outputs.pop(0)
+        create_graph = torch.is_grad_enabled()
+        with contextlib.ExitStack() as stack:
+            if cache is not None:
+                stack.enter_context(torch.autograd.graph.saved_tensors_hooks(_keep, _keep))
+                stack.enter_context(_disable_current_modes())
+            stack.enter_context(torch.enable_grad())
+            points = means if means.requires_grad else means.detach().requires_grad_(True)
+            raw_density, x = self.predict_density(points, covs)
+            (d_means,) = torch.autograd.grad(raw_density, points, torch.ones_like(raw_density),
+                                             create_graph=create_graph)
+            normals = -refdirs.l2_normalize(d_means)
+        if not create_graph:
+            raw_density, x = raw_density.detach(), x.detach()
+        if cache is not None:
+            cache.outputs.append((raw_density, x, normals))
+        return raw_density, x, normals
+
+    def forward(self, means, covs, viewdirs=None, glo_vec=None,
+                generator: Optional[torch.Generator] = None):
+        """means [..., S, 3], covs [..., S, 3, 3], viewdirs [..., 3], glo_vec
+        [..., F] -> dict of density, rgb, normals, normals_pred and roughness
+        (each None where its option is off). Noise is drawn from `generator`,
+        density noise first; none without one."""
+        if self.compute_density_normals:
+            raw_density, x, normals = self._density_and_normals(means, covs)
+        else:
+            (raw_density, x), normals = self.predict_density(means, covs), None
+        if generator is not None and self.density_noise > 0:
+            raw_density = raw_density + self.density_noise * torch.randn(
+                raw_density.shape, generator=generator, dtype=raw_density.dtype,
+                device=raw_density.device)
+        out = {"density": F.softplus(raw_density + self.density_bias), "normals": normals,
+               "normals_pred": None, "roughness": None}
+        if self.enable_pred_normals:
+            out["normals_pred"] = -refdirs.l2_normalize(self.normal_head(x).to(torch.float32))
+        normals_to_use = out["normals_pred"] if self.enable_pred_normals else normals
+        if self.enable_pred_roughness:
+            out["roughness"] = F.softplus(
+                self.roughness_head(x).to(torch.float32) + self.roughness_bias)
         if self.disable_rgb:
             out["rgb"] = torch.zeros_like(means)
             return out
@@ -189,11 +257,31 @@ class ConeFieldMLP(nn.Module):
 
         parts = []
         if self.bottleneck_width > 0:
-            parts.append(self.bottleneck(x))
+            b = self.bottleneck(x)
+            if generator is not None and self.bottleneck_noise > 0:
+                noise = torch.randn(b.shape, generator=generator, dtype=torch.float32,
+                                    device=b.device)
+                b = b + self.bottleneck_noise * noise.to(b.dtype)
+            parts.append(b)
+        sample_shape = means.shape[:-1]
         if viewdirs is not None:
-            dir_enc = spaces.pos_enc(viewdirs, 0, self.deg_view, append_identity=True)
-            dir_enc = dir_enc.to(self.compute_dtype)
-            parts.append(dir_enc[..., None, :].expand(means.shape[:-1] + dir_enc.shape[-1:]))
+            if self.use_reflections:
+                refl = refdirs.reflect(-viewdirs[..., None, :], normals_to_use)
+                roughness = out["roughness"]
+                dir_enc = self.dir_enc_fn(
+                    refl, roughness if roughness is not None else torch.zeros_like(refl[..., :1]))
+            else:
+                dir_enc = self.dir_enc_fn(
+                    viewdirs,
+                    torch.zeros_like(viewdirs[..., :1]) if self.use_directional_enc else None)
+                dir_enc = dir_enc[..., None, :].expand(sample_shape + dir_enc.shape[-1:])
+            parts.append(dir_enc.to(self.compute_dtype))
+            if self.use_n_dot_v and normals_to_use is not None:
+                n_dot_v = torch.sum(normals_to_use * viewdirs[..., None, :], dim=-1, keepdim=True)
+                parts.append(n_dot_v.to(self.compute_dtype))
+        if glo_vec is not None:
+            parts.append(
+                glo_vec[..., None, :].expand(sample_shape + glo_vec.shape[-1:]).to(self.compute_dtype))
         y = torch.cat(parts, dim=-1)
         skip_in = y
         for i, name in enumerate(self.view_names):
@@ -205,6 +293,35 @@ class ConeFieldMLP(nn.Module):
         )
         out["rgb"] = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
         return out
+
+
+def _keep(t):
+    """A saved-tensors hook that keeps the tensor as it is."""
+    return t
+
+
+class DensityPassCache:
+    """The density passes' outputs of one forward, in order; `replay` makes
+    the passes return them instead of running."""
+
+    def __init__(self):
+        self.outputs, self.replay = [], False
+
+
+@contextlib.contextmanager
+def reuse_density_passes(model: nn.Module, cache: DensityPassCache, replay: bool):
+    """Within the block the density-normal passes of `model`'s cone MLPs
+    record their outputs into `cache`, or, with `replay`, hand them back in
+    order."""
+    mlps = [m for m in model.modules() if isinstance(m, ConeFieldMLP)]
+    cache.replay = replay
+    for mlp in mlps:
+        mlp.density_passes = cache
+    try:
+        yield cache
+    finally:
+        for mlp in mlps:
+            mlp.density_passes = None
 
 
 class PointFieldMLP(nn.Module):

@@ -28,6 +28,16 @@ def gaussianize_cone(d, t0, t1, base_radius):
     return t_mean, t_var, r_var
 
 
+def gaussianize_cylinder(d, t0, t1, radius):
+    """Moment-match a cylindrical segment with a Gaussian (see gaussianize_cone);
+    the moments do not depend on the direction `d`."""
+    del d
+    t_mean = 0.5 * (t0 + t1)
+    t_var = (t1 - t0) ** 2 / 12.0
+    r_var = radius**2 / 4.0
+    return t_mean, t_var, r_var
+
+
 def lift_to_3d(d, t_mean, t_var, r_var, diagonal: bool):
     """Lift axis/perpendicular moments to 3D: cov = t_var dd^T + r_var (I - dd^T/|d|^2)."""
     mean = d[..., None, :] * t_mean[..., None]
@@ -48,10 +58,15 @@ def lift_to_3d(d, t_mean, t_var, r_var, diagonal: bool):
 
 
 def cast_rays(tdist, origins, directions, radii, ray_shape="cone", diagonal=True):
-    """Featurize ray intervals as 3D Gaussians: means [..., n, 3], covs."""
-    if ray_shape != "cone":
-        raise NotImplementedError(f"ray_shape {ray_shape!r} is not ported yet")
-    moments = gaussianize_cone(directions, tdist[..., :-1], tdist[..., 1:], radii)
+    """Featurize ray intervals as 3D Gaussians (cone frusta or cylinder
+    segments): means [..., n, 3], covs."""
+    if ray_shape == "cone":
+        gaussianize = gaussianize_cone
+    elif ray_shape == "cylinder":
+        gaussianize = gaussianize_cylinder
+    else:
+        raise ValueError(f"ray_shape must be cone|cylinder, got {ray_shape!r}")
+    moments = gaussianize(directions, tdist[..., :-1], tdist[..., 1:], radii)
     mean, cov = lift_to_3d(directions, *moments, diagonal=diagonal)
     return mean + origins[..., None, :], cov
 
@@ -92,12 +107,15 @@ def composite(
     bg_rgbs,
     t_far,
     compute_extras: bool,
+    extras=None,
     percentiles=(5, 50, 95),
 ):
     """Alpha-composite per-sample quantities into per-ray outputs.
 
     Always emits 'rgb' (background-filled). With `compute_extras` also 'acc',
-    'distance_mean' (log-space expected termination
+    each entry of `extras` ([..., S, C] per sample, such as normals or
+    roughness; None entries skipped) summed by weight, 'distance_mean'
+    (log-space expected termination
     distance), 'depth' (expected t-mid) and 'distance_{percentile_5,median,
     percentile_95}'.
     """
@@ -110,6 +128,9 @@ def composite(
         return out
 
     out["acc"] = acc
+    for key, val in (extras or {}).items():
+        if val is not None:
+            out[key] = torch.sum(weights[..., None] * val, dim=-2)
     t_mid = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
     t_lo, t_hi = tdist[..., 0], tdist[..., -1]
     mean_log = torch.sum(weights * torch.log(t_mid), dim=-1) / torch.clamp(acc, min=_EPS)

@@ -1,13 +1,13 @@
 """Photometric, depth-supervision and proposal/distortion losses.
 
-Port of the reference package's `train/losses.py`: rgb (mse, charb), the
-five depth-loss families (expected-depth mse and l1, DS-NeRF KL, Urban
-Radiance Fields and Gaussian NLL) and their dispatch on interval ('tdist')
-and point-sample ('steps'/'lengths') histories, the interlevel regularizer,
-the distortion regularizer on interval histories (mip-NeRF 360) and on
-point samples (Instant-NGP), NGP's opacity entropy and NeRF++'s
-autoexposure regularizer. The rawnerf rgb loss and the Ref-NeRF
-regularizers are not ported yet.
+Port of the reference package's `train/losses.py`: rgb (mse, charb and
+rawnerf's relative loss for linear HDR data), the five depth-loss families
+(expected-depth mse and l1, DS-NeRF KL, Urban Radiance Fields and Gaussian
+NLL) and their dispatch on interval ('tdist') and point-sample
+('steps'/'lengths') histories, the interlevel regularizer, the distortion
+regularizer on interval histories (mip-NeRF 360) and on point samples
+(Instant-NGP), the Ref-NeRF orientation and predicted-normal regularizers,
+NGP's opacity entropy and NeRF++'s autoexposure regularizer.
 """
 
 from __future__ import annotations
@@ -32,8 +32,15 @@ def rgb_loss(pred, target, lossmult=None, kind: str = "mse", charb_padding=0.001
         per_elem = resid_sq
     elif kind == "charb":
         per_elem = torch.sqrt(resid_sq + charb_padding**2)
+    elif kind == "rawnerf":
+        # min(1, pred), whose gradient splits in half where pred is exactly 1
+        # (rgb_padding lets it get there), as the reference's does; `clamp`
+        # would give it all to pred.
+        clipped = torch.minimum(pred, torch.ones_like(pred))
+        grad_scale = 1.0 / (1e-3 + clipped.detach())
+        per_elem = (clipped - target) ** 2 * grad_scale**2
     else:
-        raise ValueError(f"unknown or unported rgb loss {kind!r}")
+        raise ValueError(f"unknown rgb loss {kind!r}")
     return (lossmult * per_elem).sum() / denom, mse
 
 
@@ -148,6 +155,38 @@ def distortion_loss(ray_history) -> torch.Tensor:
     inter = torch.sum(w * torch.sum(w[..., None, :] * pair, dim=-1), dim=-1)
     intra = torch.sum(w**2 * dt, dim=-1) / 3.0
     return torch.mean(inter + intra)
+
+
+def orientation_loss(ray_history, viewdirs, coarse_mult, final_mult,
+                     target: str = "normals_pred") -> torch.Tensor:
+    """Ref-NeRF orientation regularizer: the weight-weighted squared part of
+    n.(-v) below zero, so normals facing away from the camera cost; every
+    level of the history must hold `target`."""
+    total = 0.0
+    v = -viewdirs
+    for i, level in enumerate(ray_history):
+        n = level.get(target)
+        if n is None:
+            raise ValueError(f"orientation loss needs {target!r} in history")
+        n_dot_v = torch.sum(n * v[..., None, :], dim=-1)
+        per_ray = torch.sum(level["weights"] * torch.clamp(n_dot_v, max=0.0) ** 2, dim=-1)
+        mult = final_mult if i == len(ray_history) - 1 else coarse_mult
+        total = total + mult * torch.mean(per_ray)
+    return total
+
+
+def predicted_normal_loss(ray_history, coarse_mult, final_mult) -> torch.Tensor:
+    """Tie predicted normals to density-gradient normals (Ref-NeRF): the
+    weight-weighted 1 - n.n_pred; every level must hold both."""
+    total = 0.0
+    for i, level in enumerate(ray_history):
+        n, n_pred = level.get("normals"), level.get("normals_pred")
+        if n is None or n_pred is None:
+            raise ValueError("predicted-normal loss needs both normal fields")
+        per_ray = torch.sum(level["weights"] * (1.0 - torch.sum(n * n_pred, dim=-1)), dim=-1)
+        mult = final_mult if i == len(ray_history) - 1 else coarse_mult
+        total = total + mult * torch.mean(per_ray)
+    return total
 
 
 def opacity_entropy_loss(acc, eps: float = 1e-5) -> torch.Tensor:

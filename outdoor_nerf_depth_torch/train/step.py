@@ -3,13 +3,15 @@
 Port of the reference package's `train/step.py` for the mip-NeRF 360,
 Instant-NGP and NeRF++ models: Adam with the log-linear delayed schedule,
 per-top-level-module value then norm gradient clipping, the loss assembly
-(with NGP's point-sampled distortion, opacity entropy and rm_s/vr_s
-marching stats, NeRF++'s autoexposure normalization and regularizer, and
-the `weight_decay_mults` term), `nan_to_num` on the gradients, the
+(with the Ref-NeRF orientation and predicted-normal terms, NGP's
+point-sampled distortion, opacity entropy and rm_s/vr_s marching stats,
+NeRF++'s autoexposure normalization and regularizer, and the
+`weight_decay_mults` term), `nan_to_num` on the gradients, the
 `grad_norm` stat, the forward under `remat` (none, dots or full),
 gradient accumulation over `grad_accum_steps` chunks of the batch, the NGP
 occupancy refresh, chunked `render_image` (NGP through the iterative
-renderer when `ngp_eval_renderer="iterative"`), and the checkpoint
+renderer when `ngp_eval_renderer="iterative"`; mip-NeRF 360 without its
+GLO and exposure embeddings, as the reference evaluates), and the checkpoint
 identity (`checkpoint_meta`) and restore (`load_checkpoint`). One device,
 eager PyTorch; the model computes in its `compute_dtype`, and float32
 matmuls run in full float32 (TF32 off, see `train/loop.py:set_full_float32`).
@@ -28,6 +30,8 @@ from outdoor_nerf_depth_torch import convert
 from outdoor_nerf_depth_torch import models as models_lib
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib
 from outdoor_nerf_depth_torch.data import rays as rays_lib
+from outdoor_nerf_depth_torch.models import mlps
+from outdoor_nerf_depth_torch.models.mipnerf360 import ProposalModel
 from outdoor_nerf_depth_torch.models.ngp import HashGridModel, make_density_fn
 from outdoor_nerf_depth_torch.ops import mathx
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib
@@ -45,22 +49,14 @@ _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 
 
 def check_supported(config: Config):
-    """Raise NotImplementedError for options this slice of the port lacks,
-    and ValueError for values no version of it takes."""
+    """Raise NotImplementedError for a model the port lacks, and ValueError
+    for values no version of it takes."""
     if config.remat not in REMAT_MODES + (None,):
         raise ValueError(f"remat={config.remat!r}: expected one of {REMAT_MODES}")
     if config.ngp_eval_renderer not in ("train", "iterative"):
         raise ValueError(f"ngp_eval_renderer={config.ngp_eval_renderer!r}")
-    unported = []
     if config.model not in ("mipnerf360", "ngp", "nerfpp"):
-        unported.append(f"model={config.model}")
-    for key in ("orientation_loss_mult",
-                "orientation_coarse_loss_mult", "predicted_normal_loss_mult",
-                "predicted_normal_coarse_loss_mult"):
-        if getattr(config, key) > 0:
-            unported.append(key)
-    if unported:
-        raise NotImplementedError(f"not ported yet: {unported}")
+        raise NotImplementedError(f"not ported yet: model={config.model}")
 
 
 def build_model(config: Config, generator: Optional[torch.Generator] = None):
@@ -75,6 +71,7 @@ def build_model(config: Config, generator: Optional[torch.Generator] = None):
     if config.model == "mipnerf360":
         params.setdefault("nerf_mlp_params", config.nerf_mlp_params or None)
         params.setdefault("prop_mlp_params", config.prop_mlp_params or None)
+        params.setdefault("vis_num_rays", config.vis_num_rays)
     return models_lib.build(config.model, generator=generator, **params)
 
 
@@ -159,7 +156,7 @@ def clip_gradients(model: torch.nn.Module, config: Config):
     """Per-top-level-module value then norm clipping, in place: each child
     of the model is a group, as each top-level Flax module is in the
     reference (NGP's `field`, and `pose_dR` and `pose_dT` under
-    `optimize_ext`)."""
+    `optimize_ext`; mip-NeRF 360's `glo` and `exposure_scaling`)."""
     if config.grad_max_val <= 0 and config.grad_max_norm <= 0:
         return
     for _, module in model.named_children():
@@ -223,6 +220,16 @@ def _total_loss(config: Config, batch, renderings, ray_history, rays):
         loss_terms["distortion"] = config.distortion_loss_mult * losses_lib.distortion_loss(
             ray_history
         )
+    if config.orientation_loss_mult > 0 or config.orientation_coarse_loss_mult > 0:
+        loss_terms["orientation"] = losses_lib.orientation_loss(
+            ray_history, rays.viewdirs, config.orientation_coarse_loss_mult,
+            config.orientation_loss_mult, target=config.orientation_loss_target,
+        )
+    if config.predicted_normal_loss_mult > 0 or config.predicted_normal_coarse_loss_mult > 0:
+        loss_terms["predicted_normals"] = losses_lib.predicted_normal_loss(
+            ray_history, config.predicted_normal_coarse_loss_mult,
+            config.predicted_normal_loss_mult,
+        )
     if config.opacity_loss_mult > 0 and "acc" in renderings[-1]:
         loss_terms["opacity"] = config.opacity_loss_mult * losses_lib.opacity_entropy_loss(
             renderings[-1]["acc"]
@@ -265,12 +272,17 @@ def make_forward(config: Config, model, compute_extras: bool):
     the matmul outputs; the backward recomputes the rest. The recompute
     starts from the generator state the forward started from, so it draws
     the same jitter; the caller puts the generator back where the forward
-    left it once the backward is done (the recompute may stop early).
+    left it once the backward is done (the recompute may stop early). The
+    Ref-NeRF density-normal passes keep their tensors and are replayed, not
+    recomputed (`mlps.reuse_density_passes`).
     """
+
+    # Training uses the mip-NeRF 360 model's GLO and exposure embeddings.
+    train_kwargs = {"zero_glo": False} if isinstance(model, ProposalModel) else {}
 
     def run(rays, train_frac, generator):
         return model(rays, train_frac=train_frac, compute_extras=compute_extras,
-                     generator=generator, **_grid_kwargs(model))
+                     generator=generator, **_grid_kwargs(model), **train_kwargs)
 
     if not _remat_on(config):
         return run
@@ -279,12 +291,15 @@ def make_forward(config: Config, model, compute_extras: bool):
     def forward(rays, train_frac, generator):
         start = None if generator is None else generator.get_state()
         calls = []
+        density_passes = mlps.DensityPassCache()
 
         def region(region_rays):
             if calls and start is not None:  # the recompute, inside the backward
                 generator.set_state(start)
+            replay = bool(calls)
             calls.append(None)
-            return run(region_rays, train_frac, generator)
+            with mlps.reuse_density_passes(model, density_passes, replay):
+                return run(region_rays, train_frac, generator)
 
         return checkpoint_lib.checkpoint(region, rays, use_reentrant=False,
                                          context_fn=context_fn)
@@ -424,10 +439,12 @@ def render_image(model, batch, chunk_size: int = 16384, device=None,
     """Render a full image ([H, W] rays) in chunks; returns numpy [H, W, ...].
 
     Deterministic (no jitter, train_frac 1) with every extra; the per-ray
-    outputs of the finest level. An NGP model marches through its grid:
-    with the train path's dense renderer, or with `render_eval` when
-    `ngp_eval_renderer` is "iterative" (the port's NGP model always carries
-    its grid, so no call is gridless).
+    outputs of the finest level (not the `ray_*` arrays of a few rays). A
+    mip-NeRF 360 model renders without its GLO and exposure embeddings
+    (`zero_glo`) and takes its density normals under grad mode locally. An
+    NGP model marches through its grid: with the train path's dense
+    renderer, or with `render_eval` when `ngp_eval_renderer` is "iterative"
+    (the port's NGP model always carries its grid, so no call is gridless).
     """
     device = device or next(model.parameters()).device
     iterative = isinstance(model, HashGridModel) and ngp_eval_renderer == "iterative"
@@ -444,7 +461,7 @@ def render_image(model, batch, chunk_size: int = 16384, device=None,
             renderings, _ = model(chunk, train_frac=1.0, compute_extras=True,
                                   **_grid_kwargs(model))
             final = renderings[-1]
-        outs.append({k: v.cpu() for k, v in final.items()})
+        outs.append({k: v.cpu() for k, v in final.items() if not k.startswith("ray_")})
     return {
         k: torch.cat([o[k] for o in outs]).reshape((h, w) + outs[0][k].shape[1:]).numpy()
         for k in outs[0]

@@ -158,3 +158,23 @@ def test_the_ngp_layout_and_option_modules_are_checked(module):
     assert module in _port_modules()
     path = REPO / (module.replace(".", "/") + ".py")
     assert not BANNED.search(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.ops.refdirs",
+    "outdoor_nerf_depth_torch.ops.volren",
+    "outdoor_nerf_depth_torch.models.mlps",
+    "outdoor_nerf_depth_torch.models.mipnerf360",
+    "outdoor_nerf_depth_torch.train.losses",
+    "outdoor_nerf_depth_torch.train.step",
+    "outdoor_nerf_depth_torch.data.cameras",
+    "outdoor_nerf_depth_torch.utils.raw",
+])
+def test_the_mip_option_and_raw_modules_are_checked(module):
+    """The modules of the mip-NeRF 360 options (Ref-NeRF, GLO and exposure,
+    cylinders, the rawnerf and normal losses), the last camera helpers and
+    the raw-image utilities are among those the tests above import with the
+    reference stack blocked and scan for its names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())

@@ -174,10 +174,27 @@ def test_cli_trains_and_evaluates_on_cpu(capsys, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        t_loop.train(t_load_config(FLAGSHIP, SMALL + ["orientation_loss_mult=0.1"]),
+    """The options that raised before the Ref-NeRF and GLO slice now behave
+    as in the reference: an orientation loss on a model without normals
+    raises ValueError in both packages, and a GLO config trains."""
+    bad = SMALL + ["orientation_loss_mult=0.1"]
+    with pytest.raises(ValueError, match="normals_pred"):
+        t_loop.train(t_load_config(FLAGSHIP, bad + [f"exp_dir={tmp_path / 'bad'}"]),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="GLO"):
-        t_loop.train(t_load_config(FLAGSHIP, SMALL + [f"exp_dir={tmp_path}",
-                                                      'model_params={"num_glo_features": 4}']),
-                     device="cpu")
+    config_j = j_load_config(FLAGSHIP, bad)
+    dataset = j_datasets.SyntheticDataset("train", global_batch_size=64, seed=1)
+    mesh = parallel.make_mesh(jax.devices()[:1])
+    model_j = j_step.build_model(config_j)
+    shapes = jax.eval_shape(lambda k: j_step.init_state(config_j, k)[1], jax.random.PRNGKey(0))
+    state = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype), shapes)
+    step_j = j_step.make_train_step(config_j, model_j, mesh, cameras=dataset.cameras,
+                                    camtype=dataset.camtype)
+    with pytest.raises(ValueError, match="normals_pred"):
+        step_j(state, parallel.shard_batch(dataset.sample_batch(), mesh), jax.random.PRNGKey(0), 0.0)
+    glo = json.loads(SMALL[-1].split("=", 1)[1])
+    glo.update(num_glo_features=4, num_glo_embeddings=8)
+    _, history = t_loop.train(
+        t_load_config(FLAGSHIP, SMALL[:-1] + [f"exp_dir={tmp_path / 'glo'}", "print_every=1",
+                                              "model_params=" + json.dumps(glo)]),
+        device="cpu", log_fn=lambda line: None)
+    assert len(history) == 3 and all(np.isfinite(e["loss"]) for e in history)
