@@ -6,7 +6,8 @@ Phases, each printing one JSON line; any failure raises and the run exits
 non-zero without the final line:
 
   device      CUDA must be present; the card's name and power limit
-  build       nvcc builds every CUDA source of the port into build/, all at once
+  build       nvcc builds every CUDA source of the port into build/, all at once,
+              then g++ the loop's C++ dataplane
   kernels     each kernel against its plain PyTorch version on the card, at the
               shapes of the paths and at edge cases (K2b at the osplit probe's
               [16, 524288, 16], P1 and P2 at the gather probe's 8.4M queries,
@@ -42,10 +43,13 @@ non-zero without the final line:
               index_select against table size, sorts against operand count,
               P1 and P2 beside index_select
   kitti       the KITTI data path: the port's fixture writer (30 views of
-              94x310 in a temporary directory), the mip flagship trained on
+              94x310 in a temporary directory; train batches from the C++
+              dataplane, as in the reference loop), the mip flagship trained on
               it at full width from scene_dir=.../dtu_format for 4 steps with
               a checkpoint every 2, then resumed to 6 steps (step 4 must be
-              restored), configs/kitti_ngp.json trained on it for 20 steps,
+              restored), configs/kitti_ngp.json trained on it for 20 steps
+              (and again on numpy-sampled pixels, use_native_batcher=false,
+              its steps beside the dataplane's),
               and both evaluated on the 3 test views (PSNR, SSIM, depth
               RMSE); K1a, K1b and K2a launches counted on each part
   nerfpp      NeRF++ on the same fixture's NeRF++ layout (<fixture>/nerfpp):
@@ -92,6 +96,22 @@ non-zero without the final line:
               KITTI pairs from the trained cfnet, every PNG read back,
               DrivingSceneDataset on the completion prior, and the mip flagship
               trained on it for 4 steps and evaluated (K1a/K1b counted)
+  priors_photo photometric self-supervision for depth completion at full
+              width: a textured street of 6 frames at 376x1241 (KITTI focal,
+              known poses, K.txt, 5% sparse depth); estimate_pose_pnp on the
+              5 consecutive pairs (success share, rotation and translation
+              error against the truth, host ms of matching and of PnP); the
+              --photo loss trained for 20 steps at 256x512, batch 2, for the
+              ResNet-34 and the guided net (host ms of the crops with their
+              PnP poses, device ms, the photometric term after training,
+              peak memory) and train_prior --photo for 2 steps; the four
+              prior nets at 384x1248 in bf16 beside float32 on the same
+              weights (forward ms, peak memory, largest difference, the
+              kernels of one profiled bf16 forward, which must hold bf16
+              kernels); the C++ dataplane's batches a second at 4096 and
+              16384 rays on the kitti fixture beside the numpy sampler, and
+              one single-threaded batch against the CPU's pinhole cast; no
+              kernel of the port may launch in any of it
   eval_render the tools on phase kitti's checkpoints: tools.eval restores the
               mip run (step 6, "restored step 6") and its per-image PSNR,
               SSIM, RMSE and AbsRel equal the in-train eval's to 1e-4; every
@@ -117,7 +137,9 @@ non-zero without the final line:
               rewritten as OPENCV and as OPENCV_FISHEYE: one batch of pixels
               cast on the card against the CPU's cast (1e-5 of the largest
               component), then the mip flagship at full width for 4 steps,
-              casting its pixels on the card; 3 K1a and 3 K1b a step
+              casting its pixels on the card (use_native_batcher=false: the
+              C++ dataplane would cast pinhole rays, fault 4); 3 K1a and 3
+              K1b a step
   depth_losses mip, NGP and NeRF++ at full width on the kitti fixture under
               the mse, urf and nll depth losses (8, 20 and 10 steps): finite
               depth losses, the launches of each run (3 K1a + 3 K1b a mip
@@ -192,9 +214,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib  # noqa: E402
+from outdoor_nerf_depth_torch.data import native_batcher  # noqa: E402
 from outdoor_nerf_depth_torch.data import png  # noqa: E402
 from outdoor_nerf_depth_torch.data import rays as rays_lib  # noqa: E402
 from outdoor_nerf_depth_torch.depth_priors import generate, stereo  # noqa: E402
+from outdoor_nerf_depth_torch.depth_priors import completion as prior_completion  # noqa: E402
+from outdoor_nerf_depth_torch.depth_priors import datasets as prior_datasets  # noqa: E402
+from outdoor_nerf_depth_torch.depth_priors import pose as pose_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  # noqa: E402
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import refdirs, volren, volren_weights  # noqa: E402
@@ -304,6 +330,18 @@ PRIOR_CONF_THRESHOLD = 0.5
 # disparities and depths are held to 1e-3 of the largest value, confidences
 # (in [0, 1]) to 1e-3.
 PRIOR_CPU_RTOL_OF_MAX = 1e-3
+# Phase priors_photo: a textured street at the KITTI frame size and focal,
+# the camera driving 0.8 m and turning 0.01 rad a frame, sparse depth at the
+# fixture's ~5%; the photometric term at the root CLI's weights; the
+# dataplane timed over BATCHER_CALLS calls at each batch size, its
+# single-threaded batch held to the CPU's pinhole cast (the C++ and the
+# torch float32 casts round alike to a few ulps: 1e-6 of the largest
+# direction component).
+PHOTO_FRAMES, PHOTO_FOCAL, PHOTO_SPEED, PHOTO_YAW = 6, 721.5377, 0.8, 0.01
+PHOTO_CELL, PHOTO_DENSITY = 0.3, 0.05
+PHOTO_ARCHS = ("resnet", "guided")
+PHOTO_SMOOTH, PHOTO_WEIGHT, PHOTO_CLI_STEPS = 0.01, 0.1, 2
+BATCHER_RAYS, BATCHER_CALLS, BATCHER_CAST_RTOL_OF_MAX = (4096, 16384), 50, 1e-6
 # Phase eval_render: the tools on phase kitti's checkpoints. Per-image
 # metrics of tools.eval against the in-train eval, and of the offline
 # evaluator against the same metrics in-process: 1e-4.
@@ -490,9 +528,13 @@ def phase_build():
     t0 = time.perf_counter()
     sources = [volren_weights.SOURCE, prefix_scan.SOURCE, chunk_gather.SOURCE]
     reports = cuda_build.build(sources)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_batcher.load()  # the train loop's C++ dataplane, with g++
+    emit({"phase": "build", "seconds": seconds,
           "libraries": [os.path.relpath(cuda_build.library_path(s), REPO) for s in sources],
-          "ptxas": reports})
+          "ptxas": reports, "dataplane_seconds": time.perf_counter() - t0,
+          "dataplane": os.path.relpath(native_batcher.library_path(), REPO)})
 
 
 def _check_pair(tau, g):
@@ -1214,6 +1256,10 @@ def phase_kitti(root):
     chunks = KITTI_TEST_VIEWS * math.ceil(HEIGHT * WIDTH / 16384)  # render chunks of eval
     out = {"phase": "kitti", "fixture": f"{KITTI_VIEWS} views of {HEIGHT}x{WIDTH}",
            "fixture_seconds": fixture_seconds}
+    probe = load_config(CONFIG, [f"scene_dir={scene}"])
+    if not native_batcher.applies(probe, build_dataset(probe, "train")):
+        raise AssertionError("kitti: the driving layout should draw from the C++ dataplane")
+    out["batches"] = "C++ dataplane (use_native_batcher, shared intrinsics)"
     launches = {}
 
     exp = os.path.join(root, "mip")
@@ -1253,6 +1299,21 @@ def phase_kitti(root):
     out["ngp"] = dict(ngp, rm_s=history[-1]["rm_s"], vr_s=history[-1]["vr_s"],
                       occupied_share=_occupied_share(model))
     launches["kitti_ngp"], launches["kitti_ngp_eval"] = ngp["train_launches"], ngp["eval_launches"]
+    torch.cuda.empty_cache()
+    # The same NGP run on numpy-sampled pixels cast in the step, the loop's
+    # batches before the dataplane: its steps beside the dataplane's.
+    numpy_config = config.replace(exp_dir=os.path.join(root, "ngp_numpy"),
+                                  use_native_batcher=False)
+    _, history, _, numpy_ngp = _kitti_run(numpy_config, "kitti ngp numpy batches",
+                                          _ngp_launches(NGP_STEPS), _only(K1a=chunks))
+    _check_history(history, NGP_STEPS)
+    launches["kitti_ngp_numpy"] = numpy_ngp["train_launches"]
+    refresh = set(range(0, NGP_STEPS, config.occupancy_update_every))
+    steady = lambda run: statistics.median(
+        ms for i, ms in enumerate(run["step_ms"]) if i not in refresh)
+    out["ngp_batches"] = {
+        "dataplane_median_step_ms": steady(ngp), "numpy_median_step_ms": steady(numpy_ngp),
+        "numpy": {k: numpy_ngp[k] for k in ("psnr", "ssim", "rmse", "abs_rel", "step_ms")}}
     torch.cuda.empty_cache()
     emit(out)
     return launches, config, model, out["mip_resumed"]["per_image"]
@@ -1855,6 +1916,312 @@ def phase_priors(root):
     return launches
 
 
+def _street_sequence(root, gen):
+    """A textured street at the KITTI frame size, seen from a camera that
+    drives PHOTO_SPEED m and turns PHOTO_YAW rad a frame: walls at x = +-5 m,
+    the road 1.6 m below the camera, a far wall at 80 m, textured in cells of
+    0.3 m. Writes root/{image, sparse (PHOTO_DENSITY of the pixels),
+    groundtruth}/*.png and root/K.txt; returns K and the world-to-camera
+    poses (R [3, 3], t [3])."""
+    (h, w), f = PRIOR_FRAME, PHOTO_FOCAL
+    K = np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1]])
+    table = torch.rand(512, 512, 3, generator=gen).numpy()
+    planes = [(np.array([1.0, 0, 0]), -5.0, (2, 1)), (np.array([1.0, 0, 0]), 5.0, (2, 1)),
+              (np.array([0, 1.0, 0]), 1.6, (0, 2)), (np.array([0, 0, 1.0]), 80.0, (0, 1))]
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([(u - K[0, 2]) / f, (v - K[1, 2]) / f, np.ones_like(u)], -1)
+    for sub in ("image", "sparse", "groundtruth"):
+        os.makedirs(os.path.join(root, sub))
+    poses = []
+    for i in range(PHOTO_FRAMES):
+        yaw = PHOTO_YAW * i
+        c2w = np.array([[math.cos(yaw), 0, math.sin(yaw)], [0, 1, 0],
+                        [-math.sin(yaw), 0, math.cos(yaw)]])
+        centre = np.array([0.0, 0.0, PHOTO_SPEED * i])
+        dirs = rays @ c2w.T
+        depth = np.full((h, w), np.inf)
+        rgb = np.zeros((h, w, 3))
+        for k, (normal, offset, axes) in enumerate(planes):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                s = (offset - normal @ centre) / (dirs @ normal)
+            hit = (s > 0) & (s < depth)
+            X = centre + s[hit][:, None] * dirs[hit]
+            cells = np.floor(X[:, axes] / PHOTO_CELL).astype(np.int64) + 97 * k
+            rgb[hit] = table[cells[:, 0] % 512, cells[:, 1] % 512]
+            depth[hit] = s[hit]  # the rays' z in the camera is 1: s is the depth
+        name = f"{i:06d}.png"
+        png.write_png(os.path.join(root, "image", name), (rgb * 255).astype(np.uint8))
+        generate.save_depth_u16(depth, os.path.join(root, "groundtruth", name))
+        keep = torch.rand(h, w, generator=gen).numpy() < PHOTO_DENSITY
+        generate.save_depth_u16(np.where(keep, depth, 0.0), os.path.join(root, "sparse", name))
+        poses.append((c2w.T, -c2w.T @ centre))
+    np.savetxt(os.path.join(root, "K.txt"), K)
+    return K, poses
+
+
+def _relative_pose(poses, i):
+    """(R, t) mapping camera i's points into camera i + 1's."""
+    (R0, t0), (R1, t1) = poses[i], poses[i + 1]
+    R = R1 @ R0.T
+    return R, t1 - R @ t0
+
+
+def _photo_pose_check(root, K, poses):
+    """estimate_pose_pnp between consecutive full frames: success share,
+    rotation and translation errors against the truth, host ms of the
+    matching and of the rest (back-projection, RANSAC, refinement)."""
+    read = lambda sub, i, scale: png.read_png(os.path.join(root, sub, f"{i:06d}.png")) / scale
+    rows = []
+    for i in range(PHOTO_FRAMES - 1):
+        rgb, near = read("image", i, 255.0), read("image", i + 1, 255.0)
+        sparse = read("sparse", i, 256.0).astype(np.float32)
+        t0 = time.perf_counter()
+        pts, pts_near = pose_lib.match_features(pose_lib.rgb_to_gray_u8(rgb),
+                                                pose_lib.rgb_to_gray_u8(near))
+        t1 = time.perf_counter()
+        ok, R, t = pose_lib.pose_from_matches(pts, pts_near, sparse, K.astype(np.float32))
+        t2 = time.perf_counter()
+        R_true, t_true = _relative_pose(poses, i)
+        row = {"pair": [i, i + 1], "matches": len(pts), "ok": bool(ok),
+               "match_ms": 1e3 * (t1 - t0), "pnp_ms": 1e3 * (t2 - t1)}
+        if ok:
+            row["rotation_error_rad"] = float(np.linalg.norm(pose_lib.rodrigues_vector(
+                R.astype(np.float64) @ R_true.T)))
+            row["translation_error_m"] = float(np.linalg.norm(t - t_true))
+        rows.append(row)
+    good = [r for r in rows if r["ok"]]
+    if not good:
+        raise AssertionError(f"priors_photo: PnP failed on every pair: {rows}")
+    return {"pairs": rows, "success_share": len(good) / len(rows),
+            "median_rotation_error_rad": statistics.median(r["rotation_error_rad"] for r in good),
+            "median_translation_error_m": statistics.median(r["translation_error_m"] for r in good),
+            "true_translation_m": PHOTO_SPEED,
+            "median_match_ms": statistics.median(r["match_ms"] for r in rows),
+            "median_pnp_ms": statistics.median(r["pnp_ms"] for r in rows)}
+
+
+def _photo_train(root, arch):
+    """PRIOR_STEPS steps of the --photo loss at the prior CLIs' crop and
+    batch: each step's host ms (crops, neighbours and their PnP poses) and
+    its device ms (copy, forward, backward, Adam, synchronised), the
+    photometric term after training, peak memory."""
+    net = generate.build_completion_net(arch, torch.Generator().manual_seed(2)).cuda().train()
+    ds = prior_datasets.CompletionDataset(root, crop=PRIOR_CROP, seed=0)
+    ds.sample_batch(PRIOR_BATCH)  # the CLI's first draw
+    loss_fn = train_prior.photo_completion_loss(net, PHOTO_SMOOTH, PHOTO_WEIGHT)
+    optimizer = train_prior.make_optimizer(net, PRIOR_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_ms, device_ms, losses, success = [], [], [], []
+    for _ in range(PRIOR_STEPS):
+        t0 = time.perf_counter()
+        batch = ds.sample_batch_with_near(PRIOR_BATCH)
+        t1 = time.perf_counter()
+        losses.append(float(train_prior.train_step(optimizer, loss_fn,
+                                                   train_prior.to_device(batch, "cuda"))))
+        t2 = time.perf_counter()
+        host_ms.append(1e3 * (t1 - t0))
+        device_ms.append(1e3 * (t2 - t1))
+        success.append(float(batch[6].mean()))
+    rgb, sparse, _, near, R, t, ok, K = train_prior.to_device(batch, "cuda")
+    with torch.no_grad():
+        warped, valid = pose_lib.inverse_warp(near, net(rgb, sparse), R, t, K)
+        photo = float(prior_completion.photometric_loss(warped, rgb,
+                                                        valid & (ok[:, None, None] > 0)))
+    if not all(math.isfinite(v) for v in losses) or not math.isfinite(photo) or photo <= 0:
+        raise AssertionError(f"priors_photo {arch}: losses {losses}, photo term {photo}")
+    step_ms = [a + b for a, b in zip(host_ms, device_ms)]
+    return {"steps": PRIOR_STEPS, "batch": PRIOR_BATCH, "crop": list(PRIOR_CROP), "lr": PRIOR_LR,
+            "photo_weight": PHOTO_WEIGHT, "median_step_ms": statistics.median(step_ms[1:]),
+            "median_host_ms": statistics.median(host_ms[1:]),
+            "median_device_ms": statistics.median(device_ms[1:]),
+            "host_share": statistics.median(host_ms[1:]) / statistics.median(step_ms[1:]),
+            "host_ms": host_ms, "device_ms": device_ms, "losses": losses,
+            "photo_term_after": photo, "pnp_success_share": statistics.mean(success),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _forward_timed(net, inputs):
+    """Median ms of 5 synchronised forwards after one warm-up, and peak memory."""
+    with torch.inference_mode():
+        out = net(*inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            net(*inputs)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    out = out if isinstance(out, dict) else {"depth": out}
+    return statistics.median(times), torch.cuda.max_memory_allocated(), out
+
+
+def _bf16_prior_nets(gen):
+    """The four prior nets at full width in bf16 beside the same weights in
+    float32 (TF32 off): forward ms, peak memory, the largest output
+    difference, and the kernels of one profiled bf16 forward."""
+    (h, w) = PRIOR_FRAME
+    left, right, _ = _stereo_pair(gen, h, w)
+    rgb, sparse, _ = _driving_frame(gen, h, w)
+    stereo_in = [generate._pad_to_multiple(a)[0][None] for a in (left, right)]
+    completion_in = [generate._pad_to_multiple(a)[0][None] for a in (rgb, sparse)]
+    nets = {f"stereo_{v}": (lambda dtype, v=v: stereo.StereoNet(
+                variant=v, generator=torch.Generator().manual_seed(1), dtype=dtype), stereo_in)
+            for v in ("cfnet", "pcwnet")}
+    nets.update({f"completion_{a}": (lambda dtype, a=a: generate.build_completion_net(
+                     a, torch.Generator().manual_seed(2), dtype=dtype), completion_in)
+                 for a in ("guided", "resnet")})
+    out = {}
+    for name, (make, arrays) in nets.items():
+        inputs = train_prior.to_device(arrays, "cuda")
+        f32 = make(torch.float32).cuda().eval()
+        bf16 = make(torch.bfloat16)
+        bf16.load_state_dict(f32.state_dict())
+        bf16.cuda().eval()
+        f32_ms, f32_peak, want = _forward_timed(f32, inputs)
+        del f32
+        torch.cuda.empty_cache()
+        bf16_ms, bf16_peak, got = _forward_timed(bf16, inputs)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.inference_mode(), torch.profiler.profile(activities=activities) as prof:
+            bf16(*inputs)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in kernels)
+        bf16_kernels = [e for e in kernels if "bf16" in e.key.lower()]
+        conv = [e for e in kernels if _kind(e.key) == "convolution"]
+        if not bf16_kernels:
+            raise AssertionError(f"priors_photo {name}: no bf16 kernel in the bf16 forward: "
+                                 f"{[e.key[:80] for e in kernels[:8]]}")
+        diffs = {}
+        for key, ref in want.items():
+            diff = float((got[key].float() - ref).abs().max())
+            if not math.isfinite(diff) or not torch.isfinite(got[key]).all():
+                raise AssertionError(f"priors_photo {name} {key}: non-finite bf16 output")
+            diffs[key] = {"max_abs": diff, "of_max": diff / max(float(ref.abs().max()), 1e-30)}
+        top = sorted(conv or kernels, key=lambda e: -e.self_device_time_total)[:4]
+        by_kind = {}
+        for e in kernels:
+            low = e.key.lower()
+            kind = ("layout" if "nchwtonhwc" in low or "nhwctonchw" in low else
+                    "group_norm" if "group_norm" in low or "groupnorm" in low else _kind(e.key))
+            by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+        out[name] = {"f32_forward_ms": f32_ms, "bf16_forward_ms": bf16_ms,
+                     "bf16_device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                     "speedup": f32_ms / bf16_ms, "f32_peak_bytes": f32_peak,
+                     "bf16_peak_bytes": bf16_peak, "bf16_vs_f32": diffs,
+                     "profiled_device_ms": total / 1e3,
+                     "bf16_kernel_share_of_device_time":
+                         sum(e.self_device_time_total for e in bf16_kernels) / total,
+                     "top_convolution_kernels": [
+                         {"name": e.key[:120], "ms": e.self_device_time_total / 1e3}
+                         for e in top]}
+        del bf16
+        torch.cuda.empty_cache()
+        emit({"phase": "priors_photo_progress", "net": name, "f32_ms": f32_ms,
+              "bf16_ms": bf16_ms})
+    return out
+
+
+def _splitmix_pixels(seed, n, n_images, height, width):
+    """The dataplane's draws on one thread: (img, py, px) of each ray."""
+    mask = 2**64 - 1
+    state = (seed + 0x9E3779B97F4A7C15) & mask
+    out = []
+    for _ in range(n):
+        state = (state + 0x9E3779B97F4A7C15) & mask
+        z = ((state ^ (state >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+        r = z ^ (z >> 31)
+        out.append((r % n_images, (r >> 42) % height, (r >> 20) % width))
+    return np.array(out)
+
+
+def _batcher_rates(scene):
+    """Batches a second of the C++ dataplane (at the machine's thread count)
+    and of the numpy sampler (pixels, cast later on the card) on the KITTI
+    fixture; one single-threaded batch checked against the draws and the
+    port's pinhole cast on the CPU."""
+    out = {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+           "num_threads": "0 (hardware concurrency)", "calls": BATCHER_CALLS}
+    for n in BATCHER_RAYS:
+        dataset = datasets_lib.DrivingSceneDataset(scene, "train", n)
+        rates = {}
+        for label, fn in (("native", native_batcher.NativeRayBatcher(dataset).sample_batch),
+                          ("numpy", dataset.sample_batch)):
+            for _ in range(3):
+                fn()
+            t0 = time.perf_counter()
+            for _ in range(BATCHER_CALLS):
+                fn()
+            rates[label] = BATCHER_CALLS / (time.perf_counter() - t0)
+        out[str(n)] = {"native_batches_per_s": rates["native"],
+                       "numpy_batches_per_s": rates["numpy"],
+                       "native_rays_per_s": n * rates["native"],
+                       "native_over_numpy": rates["native"] / rates["numpy"]}
+    dataset = datasets_lib.DrivingSceneDataset(scene, "train", BATCHER_RAYS[0])
+    batch = native_batcher.NativeRayBatcher(dataset, seed=5, num_threads=1).sample_batch()
+    call_seed = ((5 + 1) * 6364136223846793005 + 1442695040888963407) % 2**64
+    img, py, px = _splitmix_pixels(call_seed, BATCHER_RAYS[0], dataset.n_images,
+                                   dataset.height, dataset.width).T
+    rays = cameras_lib.pixels_to_rays(
+        torch.from_numpy(px.astype(np.float32)), torch.from_numpy(py.astype(np.float32)),
+        torch.from_numpy(dataset.pixtocams.astype(np.float32)),
+        torch.from_numpy(dataset.camtoworlds[img].astype(np.float32)))
+    err = float((batch.rays.directions - rays[1]).abs().max())
+    scale = float(rays[1].abs().max())
+    if not np.array_equal(batch.rgb.numpy(), dataset.images[img, py, px]) or \
+            not np.array_equal(batch.rays.cam_idx[:, 0].numpy(), img) or \
+            err > BATCHER_CAST_RTOL_OF_MAX * scale:
+        raise AssertionError(f"priors_photo: the dataplane's batch is off the CPU cast ({err})")
+    out["check_num_threads_1"] = {"directions_max_abs_err": err,
+                                  "tolerance": BATCHER_CAST_RTOL_OF_MAX * scale,
+                                  "rgb_and_cam_idx": "equal"}
+    return out
+
+
+def phase_priors_photo(root):
+    """Photometric self-supervision at full width (PnP on the KITTI-sized
+    textured sequence, --photo training of both completion nets), the four
+    prior nets in bf16 beside float32, and the C++ dataplane's rate. No
+    kernel of the port may launch in any of it."""
+    gen = torch.Generator().manual_seed(4)
+    out = {"phase": "priors_photo", "frame": f"{PRIOR_FRAME[0]}x{PRIOR_FRAME[1]}"}
+    _reset_launches()
+    seq = os.path.join(root, "photo_sequence")
+    t0 = time.perf_counter()
+    K, poses = _street_sequence(seq, gen)
+    out["sequence"] = {"frames": PHOTO_FRAMES, "seconds": time.perf_counter() - t0,
+                       "focal": PHOTO_FOCAL, "metres_per_frame": PHOTO_SPEED,
+                       "yaw_rad_per_frame": PHOTO_YAW, "sparse_density": PHOTO_DENSITY}
+    out["pose"] = _photo_pose_check(seq, K, poses)
+    emit({"phase": "priors_photo_progress", "pose": {k: v for k, v in out["pose"].items()
+                                                     if k != "pairs"}})
+    for arch in PHOTO_ARCHS:
+        out[f"train_{arch}"] = _photo_train(seq, arch)
+        emit({"phase": "priors_photo_progress", "arch": arch,
+              **{k: out[f"train_{arch}"][k] for k in ("median_step_ms", "median_host_ms",
+                                                      "median_device_ms", "photo_term_after")}})
+    _, printed = _quiet(train_prior.main, ["complete", "--data", seq, "--photo", "--steps",
+                                           str(PHOTO_CLI_STEPS), "--batch", str(PRIOR_BATCH),
+                                           "--print-every", "1", "--lr", str(PRIOR_LR)])
+    if f"step {PHOTO_CLI_STEPS}: loss" not in printed or "nan" in printed:
+        raise AssertionError(f"priors_photo: train_prior --photo printed {printed!r}")
+    out["cli"] = {"steps": PHOTO_CLI_STEPS, "printed": printed.splitlines()}
+    out["bf16"] = _bf16_prior_nets(gen)
+    out["batcher"] = _batcher_rates(os.path.join(root, "dtu_format"))
+    launches = {"priors_photo": _launches()}
+    if launches["priors_photo"] != _only():
+        raise AssertionError(f"a kernel launched in phase priors_photo: {launches}")
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    emit(out)
+    return launches
+
+
 @contextlib.contextmanager
 def _recording_renders():
     """Collect every `render_image` output the loop and the tools make."""
@@ -2192,9 +2559,14 @@ def phase_cameras(root):
         scene = os.path.join(root, f"lens_{model_name.lower()}")
         shutil.copytree(os.path.join(root, "dtu_format"), scene)
         make_kitti_fixture.rewrite_camera(scene, model_name)
+        # The C++ dataplane casts pinhole rays (fault 4, as in the reference):
+        # this phase measures the lensed cast in the step, so it samples pixels.
         config = load_config(CONFIG, [f"scene_dir={scene}", f"max_steps={LENS_STEPS}",
-                                      "print_every=1", f"exp_dir={scene}_exp"])
+                                      "print_every=1", f"exp_dir={scene}_exp",
+                                      "use_native_batcher=false"])
         dataset = build_dataset(config, "train")
+        if native_batcher.applies(config, dataset):
+            raise AssertionError(f"{model_name}: the lensed runs must not use the dataplane")
         if dataset.distortion is None or (dataset.camtype == "fisheye") != (
                 model_name == "OPENCV_FISHEYE") or not config.cast_rays_in_train_step:
             raise AssertionError(f"{model_name}: {dataset.distortion}, {dataset.camtype}")
@@ -2884,6 +3256,7 @@ def main():
         del kitti_ngp
         launches.update(phase_bf16_synthetic(train_ms_f32))
         launches.update(phase_priors(root))
+        launches.update(phase_priors_photo(root))
         launches.update(phase_eval_render(root, kitti_mip_eval))
         launches.update(phase_cameras(root))
         launches.update(phase_depth_losses(root))

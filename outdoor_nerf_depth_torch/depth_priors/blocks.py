@@ -12,6 +12,12 @@ reference's do. What the port keeps of Flax's conventions:
 * GroupNorm has epsilon 1e-6 and `min(8, features)` groups.
 * Initialisation: kernels from `lecun_normal` (a fan-in truncated normal),
   zero biases, GroupNorm scale 1 and bias 0.
+* `dtype` (every module, float32 by default) is Flax's compute dtype: under
+  bfloat16 a convolution takes bf16 inputs and weights, rounds its product
+  to bf16 and then adds the bias in bf16, while the parameters stay float32;
+  GroupNorm takes its statistics in float32 and returns float32 (Flax
+  promotes the bf16 input with its float32 scale), so each ConvBlock hands
+  float32 to the next layer.
 * Each module lists `flax_names`, Flax's auto-names of its children
   (`ConvBlock_0`, `ResBlock_3`, ...) against the torch attribute paths, so
   `convert.params_from_flax` can load a Flax tree.
@@ -45,6 +51,12 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Te
         return weight.mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 (or fp16) activation promoted against float32 parameters, as
+    Flax promotes it; float32 and float64 pass unchanged."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def same_pads(size: int, kernel: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
     """(before, after) padding of Flax's `padding="SAME"` along one dimension."""
     out = -(-size // stride)
@@ -60,9 +72,10 @@ class Conv(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel: int = 3, strides: int = 1,
                  dilation: int = 1, use_bias: bool = True, dims: int = 2, zero_init: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel, self.strides, self.dilation, self.dims = kernel, strides, dilation, dims
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros((features, in_features) + (kernel,) * dims))
         if not zero_init:
             lecun_normal_(self.weight.data, in_features * kernel**dims, generator)
@@ -76,7 +89,12 @@ class Conv(nn.Module):
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
         conv = F.conv2d if self.dims == 2 else F.conv3d
-        return conv(x, self.weight, self.bias, self.strides, padding, self.dilation)
+        if self.dtype == torch.float32:
+            return conv(x, self.weight, self.bias, self.strides, padding, self.dilation)
+        y = conv(x.to(self.dtype), self.weight.to(self.dtype), None, self.strides, padding,
+                 self.dilation)
+        shape = (1, -1) + (1,) * self.dims
+        return y if self.bias is None else y + self.bias.to(self.dtype).view(shape)
 
 
 def group_norm(features: int) -> nn.GroupNorm:
@@ -91,17 +109,17 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel: int = 3, strides: int = 1,
                  dilation: int = 1, use_norm: bool = True, use_act: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = Conv(in_features, features, kernel, strides, dilation, use_bias=not use_norm,
-                         dims=self.dims, generator=generator)
+                         dims=self.dims, generator=generator, dtype=dtype)
         self.norm = group_norm(features) if use_norm else None
         self.use_act = use_act
 
     def forward(self, x):
         x = self.conv(x)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(at_least_float32(x))
         return F.relu(x) if self.use_act else x
 
 
@@ -112,8 +130,9 @@ class Conv3dBlock(ConvBlock):
 
     def __init__(self, in_features: int, features: int, kernel: int = 3, strides: int = 1,
                  use_norm: bool = True, use_act: bool = True,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(in_features, features, kernel, strides, 1, use_norm, use_act, generator)
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, features, kernel, strides, 1, use_norm, use_act, generator,
+                         dtype)
 
 
 class ResBlock(nn.Module):
@@ -122,14 +141,15 @@ class ResBlock(nn.Module):
     flax_names = {"ConvBlock_0": "conv1", "ConvBlock_1": "conv2", "ConvBlock_2": "shortcut"}
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = ConvBlock(in_features, features, strides=strides, generator=generator)
-        self.conv2 = ConvBlock(features, features, use_act=False, generator=generator)
+        self.conv1 = ConvBlock(in_features, features, strides=strides, generator=generator,
+                               dtype=dtype)
+        self.conv2 = ConvBlock(features, features, use_act=False, generator=generator, dtype=dtype)
         self.shortcut = None
         if in_features != features or strides != 1:
             self.shortcut = ConvBlock(in_features, features, kernel=1, strides=strides,
-                                      use_act=False, generator=generator)
+                                      use_act=False, generator=generator, dtype=dtype)
 
     def forward(self, x):
         y = self.conv2(self.conv1(x))
@@ -175,15 +195,16 @@ class Hourglass3d(nn.Module):
     channels.
     """
 
-    def __init__(self, features: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, features: int, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        f, g = features, generator
-        self.down1a = Conv3dBlock(f, f * 2, strides=2, generator=g)
-        self.down1b = Conv3dBlock(f * 2, f * 2, generator=g)
-        self.down2a = Conv3dBlock(f * 2, f * 4, strides=2, generator=g)
-        self.down2b = Conv3dBlock(f * 4, f * 4, generator=g)
-        self.up1 = Conv3dBlock(f * 4, f * 2, use_act=False, generator=g)
-        self.up0 = Conv3dBlock(f * 2, f, use_act=False, generator=g)
+        f, g, dt = features, generator, dtype
+        self.down1a = Conv3dBlock(f, f * 2, strides=2, generator=g, dtype=dt)
+        self.down1b = Conv3dBlock(f * 2, f * 2, generator=g, dtype=dt)
+        self.down2a = Conv3dBlock(f * 2, f * 4, strides=2, generator=g, dtype=dt)
+        self.down2b = Conv3dBlock(f * 4, f * 4, generator=g, dtype=dt)
+        self.up1 = Conv3dBlock(f * 4, f * 2, use_act=False, generator=g, dtype=dt)
+        self.up0 = Conv3dBlock(f * 2, f, use_act=False, generator=g, dtype=dt)
         order = ("down1a", "down1b", "down2a", "down2b", "up1", "up0")
         self.flax_names = {f"Conv3dBlock_{i}": name for i, name in enumerate(order)}
 
@@ -199,16 +220,16 @@ class UNetFeatures(nn.Module):
     (2f, 4f and 8f channels), NCHW."""
 
     def __init__(self, base_features: int = 32, in_features: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        f, g = base_features, generator
-        self.stem = ConvBlock(in_features, f, strides=2, generator=g)  # 1/2
+        f, g, dt = base_features, generator, dtype
+        self.stem = ConvBlock(in_features, f, strides=2, generator=g, dtype=dt)  # 1/2
         widths = [(f, f, 1), (f, 2 * f, 2), (2 * f, 2 * f, 1), (2 * f, 4 * f, 2),
                   (4 * f, 4 * f, 1), (4 * f, 8 * f, 2), (8 * f, 8 * f, 1)]
-        self.res = nn.ModuleList(ResBlock(i, o, s, generator=g) for i, o, s in widths)
+        self.res = nn.ModuleList(ResBlock(i, o, s, generator=g, dtype=dt) for i, o, s in widths)
         # Fuse coarse context back into the finer maps (UNet-style).
-        self.fuse8 = ConvBlock(12 * f, 4 * f, generator=g)
-        self.fuse4 = ConvBlock(6 * f, 2 * f, generator=g)
+        self.fuse8 = ConvBlock(12 * f, 4 * f, generator=g, dtype=dt)
+        self.fuse4 = ConvBlock(6 * f, 2 * f, generator=g, dtype=dt)
         self.flax_names = {"ConvBlock_0": "stem", "ConvBlock_1": "fuse8", "ConvBlock_2": "fuse4",
                            **{f"ResBlock_{i}": f"res.{i}" for i in range(len(widths))}}
 

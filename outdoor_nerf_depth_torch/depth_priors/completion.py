@@ -11,7 +11,11 @@ Port of the reference package's `depth_priors/completion.py`:
   the depth branch (`ops.guided_conv`).
 
 Both take rgb [N, H, W, 3] in [0, 1] and sparse depth [N, H, W] in metres
-(0 = missing) and return dense depth [N, H, W] >= 0; they compute in NCHW.
+(0 = missing) and return dense depth [N, H, W] >= 0 in float32; they
+compute in NCHW. `dtype` (float32 by default) is the compute dtype of the
+convolutions and of `MMAF`'s dense layers, as in the reference (see
+`blocks.py`); the dense layers, like Flax's `Dense`, round the product to
+bf16 before adding the bias in bf16.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from outdoor_nerf_depth_torch.depth_priors.blocks import (
     Conv,
     ConvBlock,
     ResBlock,
+    at_least_float32,
     crop_to,
     lecun_normal_,
     up,
@@ -48,6 +53,14 @@ def _linear(fan_in: int, fan_out: int, generator) -> nn.Linear:
     return layer
 
 
+def _dense(layer: nn.Linear, x, dtype: torch.dtype):
+    """Flax `Dense(dtype=dtype)`: inputs, kernel and bias in `dtype`, the
+    product rounded to it before the bias is added."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class DepthCompletionNet(nn.Module):
     """RGB-D ResNet encoder-decoder at the std2019 reference depth.
 
@@ -56,30 +69,31 @@ class DepthCompletionNet(nn.Module):
 
     def __init__(self, base_features: int = 64,
                  encoder_blocks: Sequence[int] = (3, 4, 6, 3),
-                 depth_scale_hint: float = 80.0, generator: Optional[torch.Generator] = None):
+                 depth_scale_hint: float = 80.0, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        f, g = base_features, generator
+        f, g, dt = base_features, generator, dtype
         self.encoder_blocks = tuple(encoder_blocks)
         self.depth_scale_hint = depth_scale_hint
         # Modality-specific stems (reference conv1_img 48ch / conv1_d 16ch).
-        self.img_stem = ConvBlock(3, 3 * f // 4, kernel=5, generator=g)
-        self.depth_stem = ConvBlock(2, f - 3 * f // 4, kernel=5, generator=g)
+        self.img_stem = ConvBlock(3, 3 * f // 4, kernel=5, generator=g, dtype=dt)
+        self.depth_stem = ConvBlock(2, f - 3 * f // 4, kernel=5, generator=g, dtype=dt)
         encoder, skip_widths, width = [], [f], f
         for stage, n_blocks in enumerate(self.encoder_blocks):
             out = f * (2 ** min(stage, 3))
-            encoder.append(ResBlock(width, out, strides=2, generator=g))
-            encoder += [ResBlock(out, out, generator=g) for _ in range(n_blocks - 1)]
+            encoder.append(ResBlock(width, out, strides=2, generator=g, dtype=dt))
+            encoder += [ResBlock(out, out, generator=g, dtype=dt) for _ in range(n_blocks - 1)]
             skip_widths.append(out)
             width = out
         self.encoder = nn.ModuleList(encoder)
         decoder = []
         for stage in range(len(self.encoder_blocks) - 1, -1, -1):
             out = f * (2 ** min(max(stage - 1, 0), 3))
-            decoder += [ConvBlock(width, out, generator=g),
-                        ConvBlock(out + skip_widths[stage], out, generator=g)]
+            decoder += [ConvBlock(width, out, generator=g, dtype=dt),
+                        ConvBlock(out + skip_widths[stage], out, generator=g, dtype=dt)]
             width = out
         self.decoder = nn.ModuleList(decoder)
-        self.head = Conv(width, 1, 3, generator=g)
+        self.head = Conv(width, 1, 3, generator=g, dtype=dt)
         self.flax_names = {"ConvBlock_0": "img_stem", "ConvBlock_1": "depth_stem",
                            "Conv_0": "head",
                            **{f"ResBlock_{i}": f"encoder.{i}" for i in range(len(encoder))},
@@ -97,7 +111,7 @@ class DepthCompletionNet(nn.Module):
             skip = skips[stage]
             x = crop_to(up(self.decoder[2 * i](x)), skip)
             x = self.decoder[2 * i + 1](torch.cat([x, skip], dim=1))
-        return F.relu(self.head(x)[:, 0]) * self.depth_scale_hint
+        return F.relu(at_least_float32(self.head(x)[:, 0])) * self.depth_scale_hint
 
 
 class _GuidedFusion(nn.Module):
@@ -107,10 +121,10 @@ class _GuidedFusion(nn.Module):
     flax_names = {"Conv_0": "kernels"}
 
     def __init__(self, features: int, kernel_size: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k_sq = kernel_size**2
-        self.kernels = Conv(features, self.k_sq * features, 3, generator=generator)
+        self.kernels = Conv(features, self.k_sq * features, 3, generator=generator, dtype=dtype)
 
     def forward(self, guide_feat, depth_feat):
         kernels = self.kernels(guide_feat)
@@ -129,18 +143,19 @@ class MMAF(nn.Module):
     flax_names = {"Dense_0": "hidden", "Dense_1": "gates"}
 
     def __init__(self, features: int, reduction: int = 4,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         g = generator
-        self.features = features
+        self.features, self.dtype = features, dtype
         self.hidden = _linear(2 * features, max(4, 2 * features // reduction), g)
         self.gates = _linear(self.hidden.out_features, 2 * features, g)
-        self.inject_g2d = Conv(features, features, 3, zero_init=True)
-        self.inject_d2g = Conv(features, features, 3, zero_init=True)
+        self.inject_g2d = Conv(features, features, 3, zero_init=True, dtype=dtype)
+        self.inject_d2g = Conv(features, features, 3, zero_init=True, dtype=dtype)
 
     def forward(self, guide_feat, depth_feat):
         pooled = torch.cat([guide_feat, depth_feat], dim=1).mean(dim=(2, 3))  # [N, 2C]
-        gates = self.gates(F.relu(self.hidden(pooled)))
+        hidden = F.relu(_dense(self.hidden, pooled, self.dtype))
+        gates = _dense(self.gates, hidden, self.dtype)
         g2d = torch.sigmoid(gates[:, : self.features])[:, :, None, None]
         d2g = torch.sigmoid(gates[:, self.features:])[:, :, None, None]
         new_depth = depth_feat + self.inject_g2d(guide_feat * g2d)
@@ -152,23 +167,23 @@ class GuidedCompletionNet(nn.Module):
     """Two-branch guided completion (MFF-Net GuideNet) at widths f, 2f, 4f."""
 
     def __init__(self, base_features: int = 32, depth_scale_hint: float = 80.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        f, g = base_features, generator
+        f, g, dt = base_features, generator, dtype
         self.depth_scale_hint = depth_scale_hint
         widths = (f, 2 * f, 4 * f)
-        self.guide_stem = ConvBlock(3, f, generator=g)
-        self.depth_stem = ConvBlock(2, f, generator=g)
-        self.guide_res = nn.ModuleList(ResBlock(i, o, strides=2, generator=g)
+        self.guide_stem = ConvBlock(3, f, generator=g, dtype=dt)
+        self.depth_stem = ConvBlock(2, f, generator=g, dtype=dt)
+        self.guide_res = nn.ModuleList(ResBlock(i, o, strides=2, generator=g, dtype=dt)
                                        for i, o in zip(widths, widths[1:]))
-        self.depth_res = nn.ModuleList(ResBlock(i, o, strides=2, generator=g)
+        self.depth_res = nn.ModuleList(ResBlock(i, o, strides=2, generator=g, dtype=dt)
                                        for i, o in zip(widths, widths[1:]))
-        self.mmaf = nn.ModuleList(MMAF(w, generator=g) for w in widths)
-        self.fusion = nn.ModuleList(_GuidedFusion(w, generator=g) for w in widths)
-        self.up1 = ConvBlock(4 * f, 2 * f, generator=g)
-        self.fuse1 = ConvBlock(4 * f, 2 * f, generator=g)
-        self.fuse0 = ConvBlock(3 * f, f, generator=g)
-        self.head = Conv(f, 1, 3, generator=g)
+        self.mmaf = nn.ModuleList(MMAF(w, generator=g, dtype=dt) for w in widths)
+        self.fusion = nn.ModuleList(_GuidedFusion(w, generator=g, dtype=dt) for w in widths)
+        self.up1 = ConvBlock(4 * f, 2 * f, generator=g, dtype=dt)
+        self.fuse1 = ConvBlock(4 * f, 2 * f, generator=g, dtype=dt)
+        self.fuse0 = ConvBlock(3 * f, f, generator=g, dtype=dt)
+        self.head = Conv(f, 1, 3, generator=g, dtype=dt)
         names = {"ConvBlock_0": "guide_stem", "ConvBlock_1": "depth_stem", "ConvBlock_2": "up1",
                  "ConvBlock_3": "fuse1", "ConvBlock_4": "fuse0", "Conv_0": "head"}
         for i in range(len(widths)):
@@ -194,7 +209,7 @@ class GuidedCompletionNet(nn.Module):
         u1 = self.fuse1(torch.cat([u1, d1], dim=1))
         u0 = crop_to(up(u1), d0)
         u0 = self.fuse0(torch.cat([u0, d0], dim=1))
-        return F.relu(self.head(u0)[:, 0]) * self.depth_scale_hint
+        return F.relu(at_least_float32(self.head(u0)[:, 0])) * self.depth_scale_hint
 
 
 # --------------------------------------------------------------------------

@@ -6,8 +6,10 @@ depth or disparity PNGs, random crops drawn from `np.random.default_rng(seed)`
 in the reference's order, so a seed gives the reference's batches exactly.
 Batches are float32 numpy arrays, NHWC. Images are read with the port's PNG
 codec; a JPEG input raises ValueError (the port has no JPEG decoder).
-`sample_batch_with_near`, which serves the photometric self-supervision,
-is not ported (see ROADMAP.md).
+`CompletionDataset.sample_batch_with_near` serves the photometric
+self-supervision: each crop with its temporal neighbour and their relative
+pose from the port's OpenCV-free PnP (`depth_priors/pose.py`), whose RANSAC
+draws from its own generator, so the crops follow the reference's draws.
 """
 
 from __future__ import annotations
@@ -97,17 +99,21 @@ class CompletionDataset:
     def __len__(self):
         return len(self.files)
 
+    def _frame(self, name: str):
+        """(rgb, sparse, gt) of one file; gt is the sparse depth where no
+        groundtruth file exists."""
+        rgb = load_image(os.path.join(self.image_dir, name)) / 255.0
+        sparse = load_image(os.path.join(self.sparse_dir, name)) / 256.0
+        gt_path = os.path.join(self.gt_dir, name)
+        gt = load_image(gt_path) / 256.0 if os.path.exists(gt_path) else sparse
+        return rgb, sparse, gt
+
     def sample_batch(self, batch_size: int):
-        """Random crops: (rgb, sparse, gt) float32; gt is the sparse depth
-        where no groundtruth file exists."""
+        """Random crops: (rgb, sparse, gt) float32."""
         ch, cw = self.crop
         rgbs, sparses, gts = [], [], []
         for _ in range(batch_size):
-            name = self.files[self._rng.integers(len(self.files))]
-            rgb = load_image(os.path.join(self.image_dir, name)) / 255.0
-            sparse = load_image(os.path.join(self.sparse_dir, name)) / 256.0
-            gt_path = os.path.join(self.gt_dir, name)
-            gt = load_image(gt_path) / 256.0 if os.path.exists(gt_path) else sparse
+            rgb, sparse, gt = self._frame(self.files[self._rng.integers(len(self.files))])
             h, w = rgb.shape[:2]
             y0 = self._rng.integers(0, max(1, h - ch + 1))
             x0 = self._rng.integers(0, max(1, w - cw + 1))
@@ -131,4 +137,55 @@ class CompletionDataset:
         return np.array(
             [[focal, 0, (width - 1) / 2.0], [0, focal, (height - 1) / 2.0], [0, 0, 1.0]],
             np.float32,
+        )
+
+    def sample_batch_with_near(self, batch_size: int):
+        """Batch augmented for photometric self-supervision.
+
+        Returns (rgb, sparse, gt, rgb_near, R [B,3,3], t [B,3], success [B],
+        K [3,3]): the nearby frame is the temporal neighbour (the next file,
+        else the previous one), with its relative pose estimated by PnP
+        against the sparse depth. Items where PnP fails get the identity
+        pose and success 0 so the loss can mask them. The draws follow the
+        reference's order: file index, then the crop's y0 and x0. K is
+        `intrinsics` at the crop's size; a K.txt is used as it is, not
+        shifted by the crop offset, as in the reference.
+        """
+        from outdoor_nerf_depth_torch.depth_priors import pose as pose_lib
+
+        ch, cw = self.crop
+        K = None
+        rgbs, sparses, gts, nears, Rs, ts, succ = [], [], [], [], [], [], []
+        for _ in range(batch_size):
+            i = int(self._rng.integers(len(self.files)))
+            j = i + 1 if i + 1 < len(self.files) else i - 1
+            rgb, sparse, gt = self._frame(self.files[i])
+            near = load_image(os.path.join(self.image_dir, self.files[max(0, j)])) / 255.0
+            h, w = rgb.shape[:2]
+            y0 = int(self._rng.integers(0, max(1, h - ch + 1)))
+            x0 = int(self._rng.integers(0, max(1, w - cw + 1)))
+            sl = np.s_[y0 : y0 + ch, x0 : x0 + cw]
+            rgb, near, sparse, gt = rgb[sl], near[sl], sparse[sl], gt[sl]
+            if K is None:
+                # One K for the batch, at the crop's size.
+                K = self.intrinsics(*rgb.shape[:2])
+            ok, R, t = pose_lib.estimate_pose_pnp(rgb, near, sparse, K)
+            if not ok:
+                R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+            rgbs.append(rgb)
+            nears.append(near)
+            sparses.append(sparse)
+            gts.append(gt)
+            Rs.append(R)
+            ts.append(t)
+            succ.append(1.0 if ok else 0.0)
+        return (
+            np.stack(rgbs).astype(np.float32),
+            np.stack(sparses).astype(np.float32),
+            np.stack(gts).astype(np.float32),
+            np.stack(nears).astype(np.float32),
+            np.stack(Rs).astype(np.float32),
+            np.stack(ts).astype(np.float32),
+            np.asarray(succ, np.float32),
+            K.astype(np.float32),
         )

@@ -43,10 +43,11 @@ def _batch(img, device):
     return torch.from_numpy(padded)[None].to(device)
 
 
-def build_completion_net(arch: str, generator: Optional[torch.Generator] = None):
+def build_completion_net(arch: str, generator: Optional[torch.Generator] = None,
+                         dtype: torch.dtype = torch.float32):
     if arch not in COMPLETION_ARCHS:
         raise ValueError(f"unknown completion arch {arch!r}")
-    return COMPLETION_ARCHS[arch](generator=generator)
+    return COMPLETION_ARCHS[arch](generator=generator, dtype=dtype)
 
 
 def generate_stereo_priors(

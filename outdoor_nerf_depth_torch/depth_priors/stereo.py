@@ -9,7 +9,10 @@ variable-range stage. `variant="cfnet"` fuses two scales; `"pcwnet"` adds
 the 1/16 volume and a warping volume at 1/8.
 
 The public functions take and return NHWC ([N, D, H, W, C] for volumes) as
-the reference's do; `StereoNet` computes in NCHW/NCDHW inside.
+the reference's do; `StereoNet` computes in NCHW/NCDHW inside. `dtype`
+(float32 by default) is the convolutions' compute dtype, as in the
+reference: under bfloat16 the logits come out in bf16 and the soft-argmin
+promotes them against the float32 disparities.
 """
 
 from __future__ import annotations
@@ -126,14 +129,14 @@ class CostVolumeStage(nn.Module):
     """One aggregation stage: 3D convs + hourglasses -> disparity logits [N, D, H, W]."""
 
     def __init__(self, in_features: int, features: int = 32, num_hourglasses: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        g = generator
-        self.conv0 = Conv3dBlock(in_features, features, generator=g)
-        self.conv1 = Conv3dBlock(features, features, generator=g)
-        self.hourglasses = nn.ModuleList(Hourglass3d(features, generator=g)
+        g, dt = generator, dtype
+        self.conv0 = Conv3dBlock(in_features, features, generator=g, dtype=dt)
+        self.conv1 = Conv3dBlock(features, features, generator=g, dtype=dt)
+        self.hourglasses = nn.ModuleList(Hourglass3d(features, generator=g, dtype=dt)
                                          for _ in range(num_hourglasses))
-        self.logits = Conv(features, 1, 3, dims=3, generator=g)
+        self.logits = Conv(features, 1, 3, dims=3, generator=g, dtype=dt)
         self.flax_names = {"Conv3dBlock_0": "conv0", "Conv3dBlock_1": "conv1", "Conv_0": "logits",
                            **{f"Hourglass3d_{i}": f"hourglasses.{i}"
                               for i in range(num_hourglasses)}}
@@ -158,26 +161,28 @@ class StereoNet(nn.Module):
 
     def __init__(self, max_disparity: int = 192, base_features: int = 32, num_groups: int = 8,
                  concat_features: int = 12, refine_offsets: int = 8, variant: str = "cfnet",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         if variant not in ("cfnet", "pcwnet"):
             raise ValueError(f"unknown stereo variant {variant!r}")
-        f, g = base_features, generator
+        f, g, dt = base_features, generator, dtype
         self.max_disparity, self.num_groups = max_disparity, num_groups
         self.concat_features, self.refine_offsets, self.variant = (
             concat_features, refine_offsets, variant)
-        self.features = UNetFeatures(f, generator=g)
+        self.features = UNetFeatures(f, generator=g, dtype=dt)
         vol_features = num_groups + 2 * concat_features
         names = {"UNetFeatures_0": "features"}
         stages = ["stage1"]
         if variant == "pcwnet":
-            self.agg16 = Conv3dBlock(vol_features, f, generator=g)
+            self.agg16 = Conv3dBlock(vol_features, f, generator=g, dtype=dt)
             names["Conv3dBlock_0"] = "agg16"
             vol_features += f
-            self.warp_stage = CostVolumeStage(num_groups, f // 2, num_hourglasses=1, generator=g)
+            self.warp_stage = CostVolumeStage(num_groups, f // 2, num_hourglasses=1, generator=g,
+                                              dtype=dt)
             stages.append("warp_stage")
-        self.stage1 = CostVolumeStage(vol_features, f, generator=g)
-        self.stage2 = CostVolumeStage(num_groups, f // 2, num_hourglasses=1, generator=g)
+        self.stage1 = CostVolumeStage(vol_features, f, generator=g, dtype=dt)
+        self.stage2 = CostVolumeStage(num_groups, f // 2, num_hourglasses=1, generator=g,
+                                      dtype=dt)
         stages.append("stage2")
         names.update({f"CostVolumeStage_{i}": name for i, name in enumerate(stages)})
         self.flax_names = names

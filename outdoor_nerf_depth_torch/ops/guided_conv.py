@@ -38,7 +38,9 @@ def guided_local_conv_nchw(x: torch.Tensor, weights: torch.Tensor) -> torch.Tens
     """Apply per-pixel depthwise kernels: x [B, C, H, W] and weights
     [B, K*K, C, H, W] -> [B, C, H, W]."""
     k = _kernel_size(weights.shape[1])
-    return torch.einsum("bkchw,bkchw->bchw", _patches_nchw(x, k), weights)
+    # Mixed dtypes promote, as the reference's einsum does.
+    dtype = torch.promote_types(x.dtype, weights.dtype)
+    return torch.einsum("bkchw,bkchw->bchw", _patches_nchw(x.to(dtype), k), weights.to(dtype))
 
 
 def guided_local_conv(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,7 @@
         [--crop 256 512] [--out stereo.pt] [--list-file LIST | --benchmark NAME \\
         [--split SPLIT]] [--eval-list LIST] [--seed 0] [--device cpu]
     python -m outdoor_nerf_depth_torch.tools.train_prior complete --data ROOT \\
-        [--arch guided|resnet] [--smooth-weight 0.01] ...
+        [--arch guided|resnet] [--smooth-weight 0.01] [--photo [--photo-weight 0.1]] ...
 
 The port's counterpart of the repository's `train_prior.py`, with its
 arguments: Adam with optax's defaults (betas 0.9 / 0.999, eps 1e-8, no
@@ -21,8 +21,13 @@ nets' output ReLU dies on the first steps for many initialisations, in
 the reference too, and the prior is then all zero: another seed is the
 remedy. Training is not bit-reproducible on CUDA at a fixed seed (the
 backward of bilinear upsampling, for one, accumulates with atomics), so
-the same seed gives another prior on another run. `--photo` (photometric
-self-supervision with PnP poses) is not ported and raises. Runs on CUDA
+the same seed gives another prior on another run. `--photo` adds the
+photometric self-supervision: every batch after the first comes with each
+crop's temporal neighbour and their PnP pose
+(`CompletionDataset.sample_batch_with_near`, pose estimation on the host),
+and the loss gains `--photo-weight` times the L1 error of the neighbour
+inverse-warped through the predicted depth (`depth_priors/pose.py`), over
+the pixels that land inside it on items whose PnP succeeded. Runs on CUDA
 unless `--device cpu` is given.
 """
 
@@ -37,7 +42,7 @@ import torch
 
 from outdoor_nerf_depth_torch.depth_priors import benchmark_data, completion
 from outdoor_nerf_depth_torch.depth_priors import datasets as prior_data
-from outdoor_nerf_depth_torch.depth_priors import generate, stereo
+from outdoor_nerf_depth_torch.depth_priors import generate, pose, stereo
 from outdoor_nerf_depth_torch.train.loop import resolve_device
 
 
@@ -71,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
         else:
             q.add_argument("--arch", default="guided", choices=sorted(generate.COMPLETION_ARCHS))
             q.add_argument("--photo", action="store_true",
-                           help="photometric self-supervision (not ported: raises)")
+                           help="add self-supervised photometric loss (PnP pose + inverse warp "
+                           "from the temporal neighbor)")
             q.add_argument("--photo-weight", type=float, default=0.1)
             q.add_argument("--smooth-weight", type=float, default=0.01)
     return p
@@ -101,6 +107,20 @@ def completion_loss(model, smooth_weight: float):
         pred = model(rgb, sparse)
         return (completion.masked_depth_mse(pred, gt)
                 + smooth_weight * completion.edge_aware_smoothness(pred, rgb))
+    return loss_fn
+
+
+def photo_completion_loss(model, smooth_weight: float, photo_weight: float):
+    """`completion_loss` plus `photo_weight` times the photometric error of
+    the neighbour warped into each item's view through the predicted depth,
+    masked to the pixels that land inside it on items whose PnP succeeded."""
+    def loss_fn(rgb, sparse, gt, rgb_near, R, t, success, K):
+        pred = model(rgb, sparse)
+        loss = completion.masked_depth_mse(pred, gt)
+        loss = loss + smooth_weight * completion.edge_aware_smoothness(pred, rgb)
+        warped, valid = pose.inverse_warp(rgb_near, pred, R, t, K)
+        valid = valid & (success[:, None, None] > 0)
+        return loss + photo_weight * completion.photometric_loss(warped, rgb, mask=valid)
     return loss_fn
 
 
@@ -145,10 +165,6 @@ def evaluate_stereo(model, data: str, eval_list: str, max_disparity: float, devi
 def main(argv):
     """Train as the arguments say; returns the trained model."""
     args = build_parser().parse_args(argv)
-    if args.cmd == "complete" and args.photo:
-        raise NotImplementedError(
-            "--photo (PnP poses + inverse warp from the temporal neighbour) is not ported: "
-            "its pose estimator needs OpenCV; ROADMAP.md queue 1, item 9")
     device = resolve_device(args.device)
     generator = torch.Generator().manual_seed(args.seed)
     if args.cmd == "stereo":
@@ -159,16 +175,21 @@ def main(argv):
     else:
         ds = prior_data.CompletionDataset(args.data, crop=tuple(args.crop))
         model = generate.build_completion_net(args.arch, generator)
-        loss_fn = completion_loss(model, args.smooth_weight)
-    # The reference draws one batch to initialise its model; drawing it here
-    # too keeps step i on the reference's batch i.
+        if args.photo:
+            loss_fn = photo_completion_loss(model, args.smooth_weight, args.photo_weight)
+        else:
+            loss_fn = completion_loss(model, args.smooth_weight)
+    photo = args.cmd == "complete" and args.photo
+    sample = ds.sample_batch_with_near if photo else ds.sample_batch
+    # The reference draws one batch (without neighbours) to initialise its
+    # model; drawing it here too keeps step i on the reference's batch i.
     ds.sample_batch(args.batch)
     model.to(device).train()
     optimizer = make_optimizer(model, args.lr)
 
     t0 = time.perf_counter()
     for step in range(args.steps):
-        loss = train_step(optimizer, loss_fn, to_device(ds.sample_batch(args.batch), device))
+        loss = train_step(optimizer, loss_fn, to_device(sample(args.batch), device))
         if (step + 1) % args.print_every == 0:
             dt = time.perf_counter() - t0
             print(f"step {step + 1}: loss {float(loss):.4f} ({args.print_every / dt:.2f} it/s)",

@@ -4,7 +4,9 @@ Port of `train` and `evaluate` from the reference package's `train/loop.py`
 for every dataset the reference's `build_dataset` reads (`synthetic`,
 `spheres`, `driving`, `nerfpp`, `tnt`, `blender`, `tnt_fvs`, `dtu`, `nsvf`
 and `rtmv`): prefetched
-batches -> train step -> JSON log lines with the reference's keys every
+batches (from the C++ dataplane, `data/native_batcher.py`, under the
+reference loop's rule: `use_native_batcher` and one shared [3, 3] intrinsics
+matrix; else from `dataset.sample_batch`) -> train step -> JSON log lines with the reference's keys every
 `print_every` steps, an optional held-out view render every
 `train_render_every` steps, checkpoints, and per-image eval metrics with
 the renders saved. The log lines' numbers also go to a `MetricWriter` in
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib
+from outdoor_nerf_depth_torch.data import native_batcher
 from outdoor_nerf_depth_torch.data import rays as rays_lib
 from outdoor_nerf_depth_torch.train import checkpoints as ckpt_lib
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib
@@ -226,7 +229,12 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     # A resumed run refreshes at its first step when a refresh fell due
     # since the last multiple of the cadence.
     next_occ = (start_step // occ_every) * occ_every if occ_update is not None else None
-    batches = datasets_lib.PrefetchIterator(dataset.sample_batch)
+    sample_fn = dataset.sample_batch
+    if native_batcher.applies(config, dataset):
+        # The reference loop's batch source. A failed build raises here (the
+        # reference logs it and falls back to `dataset.sample_batch`).
+        sample_fn = native_batcher.NativeRayBatcher(dataset, seed=config.seed).sample_batch
+    batches = datasets_lib.PrefetchIterator(sample_fn)
     writer = MetricWriter(os.path.join(config.exp_dir, "logs"))
 
     test_dataset = None

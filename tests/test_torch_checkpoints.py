@@ -126,7 +126,9 @@ def _train(exp, stop_at=None):
         if stop_at is not None and lines[-1].get("step") == stop_at:
             raise _Interrupt
 
-    config = load_config(CONFIG, SMALL + [f"exp_dir={exp}"])
+    # The batches come from `_OneBatch.sample_batch`, not the C++ dataplane
+    # (which restarts its stream on a resume, as the reference's does).
+    config = load_config(CONFIG, SMALL + [f"exp_dir={exp}", "use_native_batcher=false"])
     model, history = t_loop.train(config, device="cpu", log_fn=log, dataset=_OneBatch())
     return model, history, lines
 

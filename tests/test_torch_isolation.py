@@ -178,3 +178,51 @@ def test_the_mip_option_and_raw_modules_are_checked(module):
     assert module in _port_modules()
     path = REPO / (module.replace(".", "/") + ".py")
     assert not BANNED.search(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.data.native_batcher",
+    "outdoor_nerf_depth_torch.data.colmap_db",
+    "outdoor_nerf_depth_torch.data.preprocess",
+    "outdoor_nerf_depth_torch.depth_priors.pose",
+    "outdoor_nerf_depth_torch.depth_priors.datasets",
+    "outdoor_nerf_depth_torch.depth_priors.blocks",
+    "outdoor_nerf_depth_torch.depth_priors.completion",
+    "outdoor_nerf_depth_torch.depth_priors.stereo",
+    "outdoor_nerf_depth_torch.tools.train_prior",
+    "outdoor_nerf_depth_torch.train.loop",
+])
+def test_the_dataplane_pose_and_preprocessing_modules_are_checked(module):
+    """The modules of the C++ dataplane, the OpenCV-free pose branch, the
+    bf16 prior nets and the COLMAP preprocessing are among those the tests
+    above import with the reference stack and OpenCV blocked and scan for
+    the reference's names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not BANNED.search(path.read_text())
+
+
+def test_pose_estimation_runs_with_opencv_blocked():
+    """`estimate_pose_pnp` (feature matching, PnP-RANSAC) imports and runs
+    with `cv2` unimportable: on a textured pair shifted by 6 px at depth 10
+    (fx 100) it finds tx ~0.6."""
+    code = (
+        "import sys\n"
+        "for name in ('cv2', 'jax', 'outdoor_nerf_depth_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from outdoor_nerf_depth_torch.depth_priors import pose\n"
+        "rng = np.random.default_rng(33)\n"
+        "base = rng.uniform(size=(16, 24, 3))\n"
+        "rgb = np.clip(np.kron(base, np.ones((8, 8, 1))) + rng.normal(0, 0.02, (128, 192, 3)), 0, 1)\n"
+        "rgb = rgb.astype(np.float32)\n"
+        "K = np.array([[100.0, 0, 95.5], [0, 100.0, 63.5], [0, 0, 1]], np.float32)\n"
+        "ok, R, t = pose.estimate_pose_pnp(rgb, np.roll(rgb, 6, axis=1),\n"
+        "                                  np.full((128, 192), 10.0, np.float32), K)\n"
+        "assert ok and abs(t[0] - 0.6) < 0.15 and np.abs(R - np.eye(3)).max() < 0.05, (R, t)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -423,8 +423,10 @@ def test_train_prior_complete_and_priors_cli(tmp_path, capsys):
     for sub in ("trained", "random"):
         assert sorted(os.listdir(tmp_path / sub)) == ["000000.png", "000001.png"]
         assert png.read_png(str(tmp_path / sub / "000000.png")).shape == (H, W)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train_prior.main(["complete", "--data", root, "--photo", "--device", "cpu"])
+    # --photo trains too (its own tests: tests/test_torch_prior_photo.py).
+    t_train_prior.main(["complete", "--data", root, "--photo", "--steps", "1", "--batch", "1",
+                        "--crop", "32", "64", "--print-every", "1", "--device", "cpu"])
+    assert "step 1: loss" in capsys.readouterr().out
 
 
 def test_train_prior_stereo_with_eval_list_and_priors_cli(tmp_path, capsys):
