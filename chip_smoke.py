@@ -189,6 +189,26 @@ non-zero without the final line:
               300 steps of the config's schedule (past its 256 warmup steps;
               1 K1a, 1 K1b and 16 K2a a step), ms a step and rays/s, and the
               test views' PSNR (40 K1a a view)
+  ddp         data parallelism over torch.distributed on the one card, each
+              rank a process of this script launched by torchrun
+              (`--standalone`): (a) world 1 under NCCL on cuda:0: the same
+              flagship and NGP steps timed in that process without a group,
+              then in the group, then without it again (the cost of the
+              group's path at world 1); then the CLI
+              (`python -m outdoor_nerf_depth_torch`'s main inside the group):
+              the flagship at full width on the synthetic scene for 6 steps
+              with checkpoints at 3 and 6 and its test-split eval (3 K1a and
+              3 K1b a step, 3 K1a a test view), then configs/kitti_ngp.json
+              for 6 steps (16 K2a a step), the step ms of each and the ms of
+              the step's flat gradient all-reduce; (b) world 2 under gloo,
+              both ranks on cuda:0 with CUDA tensors (no move to the CPU):
+              3 flagship steps, 3 under remat=dots (whose recompute runs on
+              autograd's device thread) and 1 NGP step at budget 32 through
+              the untrained (warmup-refreshed) grid, each rank on its half
+              of the global batches, held against one process fed the whole
+              batches and the same generator (loss and gradient norm,
+              parameters; tolerances at DDP_*), with the per-rank step ms,
+              the launches on each rank and the gloo all-reduce ms
 
 then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
@@ -202,6 +222,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -213,6 +234,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from outdoor_nerf_depth_torch import __main__ as cli  # noqa: E402
+from outdoor_nerf_depth_torch import parallel  # noqa: E402
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib  # noqa: E402
 from outdoor_nerf_depth_torch.data import native_batcher  # noqa: E402
 from outdoor_nerf_depth_torch.data import png  # noqa: E402
@@ -400,6 +423,23 @@ OPTION_CPU_RAYS = 256
 # Card against CPU, one forward and backward of 256 rays from the same
 # weights (see _card_against_cpu): colours at 1e-4 absolute.
 OPTION_CPU_ATOL = 1e-4
+# Phase ddp: (a) world 1 under NCCL through the CLI (the flagship with
+# checkpoints and its eval, NGP), (b) world 2 under gloo on one card. Two
+# ranks against one process fed the concatenated batches and the same
+# generator, float32 with TF32 off: the ranks' rows go through the same ops
+# as one process's, but GEMMs of half the rows may take other kernels and
+# the losses are summed in other orders (a few float32 ulps: relative 1e-5
+# on each step's loss, 1e-4 on the gradient norm, whose smallest entries
+# carry that rounding); Adam turns the rounding of near-zero gradients into
+# moves of up to lr a step, so parameters are held to 1e-5 + 1e-4 |p| on
+# 99.9% of their entries and to Adam's bound on every entry.
+DDP_STEPS, DDP_NGP_STEPS, DDP_CLI_STEPS, DDP_SEED = 3, 1, 6, 7
+# Steps timed with and without the group at world 1 (a); the median skips
+# the first DDP_TIMED_SKIP of each run.
+DDP_TIMED_STEPS, DDP_TIMED_SKIP = 12, 2
+DDP_LOSS_RTOL, DDP_GRAD_NORM_RTOL = 1e-5, 1e-4
+DDP_PARAM_ATOL, DDP_PARAM_RTOL, DDP_PARAM_SHARE = 1e-5, 1e-4, 0.999
+DDP_ALLREDUCE_REPS, DDP_TIMEOUT_S = 10, 300
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -3117,6 +3157,316 @@ def phase_mip_options(root):
     return launches
 
 
+def _ddp_spawn(part, world, workdir):
+    """`world` ranks of this script launched by torchrun (`--standalone`,
+    whose rendezvous takes a free port); each writes its result to
+    `workdir`. torchrun fails when a rank fails; past the time limit its
+    whole session is killed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", os.path.abspath(__file__), "--ddp-worker", part, workdir]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{part} ranks timed out:\n{out[-3000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{part} ranks exited {proc.returncode}:\n{out[-3000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{part}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _allreduce_ms(model, reps=DDP_ALLREDUCE_REPS):
+    """Host-clock ms of the step's one flat all-reduce of `model`'s
+    gradients (concatenate, all-reduce, copy back), median of `reps`."""
+    grads = [torch.randn_like(p) for p in model.parameters()]
+    for _ in range(2):
+        parallel.all_reduce_sum_(grads)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parallel.all_reduce_sum_(grads)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"ms": statistics.median(times), "bytes": 4 * sum(g.numel() for g in grads)}
+
+
+def _ddp_cli_run(argv, exp_dir, batch):
+    """The port's CLI inside this rank's group: its log lines, the step ms
+    of each, the kernel launches, the files of the experiment."""
+    _reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv + [f"exp_dir={exp_dir}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    steps = [x for x in lines if "loss" in x]
+    for entry in steps:
+        if not all(math.isfinite(v) for k, v in entry.items() if k.startswith("loss")):
+            raise AssertionError(f"non-finite loss: {entry}")
+    step_ms = [1e3 * batch / x["rays_per_sec"] for x in steps]
+    return {"seconds": seconds, "launches": _launches(), "step_ms": step_ms,
+            "median_step_ms_after_first": statistics.median(step_ms[1:]),
+            "rays_per_sec_per_chip": steps[-1]["rays_per_sec_per_chip"],
+            "losses": {k: v for k, v in steps[-1].items() if k.startswith("loss")},
+            "eval": [x for x in lines if "split" in x],
+            "files": sorted(os.listdir(exp_dir)),
+            "checkpoints": sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))}
+
+
+def _ddp_timed(inputs, device):
+    """Host-clock ms of DDP_TIMED_STEPS flagship and NGP steps (the inputs'
+    weights and batches, cycled) in this process as it stands, in a group
+    or not: each step, and the median after the first DDP_TIMED_SKIP."""
+    out = {}
+    for label in ("mip", "ngp"):
+        spec = inputs[label]
+        config, model = _ddp_model(spec, device)
+        batches = spec["batches"] * -(-DDP_TIMED_STEPS // len(spec["batches"]))
+        run = _ddp_steps(config.replace(max_steps=DDP_TIMED_STEPS), model,
+                         dict(spec, batches=batches[:DDP_TIMED_STEPS]), device)
+        out[label] = {"step_ms": run["step_ms"],
+                      "median_ms": statistics.median(run["step_ms"][DDP_TIMED_SKIP:])}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_worker_nccl(workdir):
+    """Part (a): world 1 under NCCL. The flagship's and NGP's steps timed
+    without a group, in the group and without it again; then, in the group,
+    the CLI on the flagship and NGP at full width on the synthetic scene."""
+    set_full_float32()
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    local = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(local)
+    timed = {"one_process_before": _ddp_timed(inputs, local)}
+    device = parallel.init_from_env()
+    backend = torch.distributed.get_backend()
+    if backend != "nccl" or parallel.world() != 1:
+        raise AssertionError(f"joined {backend} with {parallel.world()} ranks")
+    timed["world1"] = _ddp_timed(inputs, device)
+    out = {"backend": backend, "device": str(device), "world": parallel.world(), "timed": timed}
+    mip_argv = ["--config", CONFIG, "dataset=synthetic", f"max_steps={DDP_CLI_STEPS}",
+                "print_every=1", f"checkpoint_every={DDP_CLI_STEPS // 2}"]
+    out["mip"] = _ddp_cli_run(mip_argv, os.path.join(workdir, "nccl_mip"), 4096)
+    test_views = datasets_lib.SyntheticDataset("test").n_images
+    if out["mip"]["launches"] != _only(K1a=3 * DDP_CLI_STEPS + 3 * test_views,
+                                       K1b=3 * DDP_CLI_STEPS):
+        raise AssertionError(f"nccl mip: launches {out['mip']['launches']}")
+    if out["mip"]["checkpoints"] != sorted([str(DDP_CLI_STEPS // 2), str(DDP_CLI_STEPS),
+                                            "model_meta.json"]) or \
+            "renders" not in out["mip"]["files"] or len(out["mip"]["eval"]) != 1:
+        raise AssertionError(f"nccl mip: wrote {out['mip']['files']} {out['mip']['checkpoints']}")
+    ngp_argv = ["--no-eval", "--config", NGP_CONFIG, "dataset=synthetic",
+                f"max_steps={DDP_CLI_STEPS}", "print_every=1"]
+    out["ngp"] = _ddp_cli_run(ngp_argv, os.path.join(workdir, "nccl_ngp"), 8192)
+    if out["ngp"]["launches"] != _ngp_launches(DDP_CLI_STEPS):
+        raise AssertionError(f"nccl ngp: launches {out['ngp']['launches']}")
+    config = load_config(CONFIG)
+    out["allreduce"] = _allreduce_ms(step_lib.build_model(config).to(device))
+    out["still_active"] = parallel.active()
+    parallel.shutdown()
+    timed["one_process_after"] = _ddp_timed(inputs, device)
+    return out
+
+
+def _ddp_worker_gloo(workdir):
+    """Part (b): one rank of two under gloo, both on cuda:0 with CUDA
+    tensors: this rank's rows of each global batch through the step."""
+    device = parallel.init_from_env("cuda:0", backend="gloo")
+    backend = torch.distributed.get_backend()
+    if backend != "gloo" or parallel.world() != 2:
+        raise AssertionError(f"joined {backend} with {parallel.world()} ranks")
+    set_full_float32()
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    out = {"backend": backend, "device": str(device), "rank": parallel.rank()}
+    for label in ("mip", "mip_remat", "ngp"):
+        spec = inputs[label]
+        config, model = _ddp_model(spec, device)
+        run = _ddp_steps(config, model, spec, device)
+        params = torch.stack([p.detach().double().sum() for p in model.parameters()])
+        run["replicated"] = bool(torch.equal(*parallel.all_gather_rows(params[None])))
+        if parallel.rank() == 0:
+            torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+                       os.path.join(workdir, f"{label}_params.pt"))
+        if label == "mip":
+            run["allreduce"] = _allreduce_ms(model)
+        out[label] = run
+        del model
+        torch.cuda.empty_cache()
+    parallel.shutdown()
+    return out
+
+
+def _ddp_model(spec, device):
+    config = load_config(spec["config"], spec["overrides"])
+    model = step_lib.build_model(config)
+    model.load_state_dict(spec["state"])
+    return config, model.to(device)
+
+
+def _ddp_steps(config, model, spec, device):
+    """The steps of `spec` on `model`: on this rank's rows of each global
+    batch in a group, on the whole batch otherwise; stats, ms and launches."""
+    optimizer, lr_fn = step_lib.make_optimizer(config, model)
+    cams = tuple(None if c is None else c.to(device) for c in spec["cams"])
+    step = step_lib.make_train_step(config, model, optimizer, lr_fn, cameras=cams)
+    gen = torch.Generator(device=device).manual_seed(DDP_SEED)
+    stats, step_ms = [], []
+    _reset_launches()
+    for i, batch in enumerate(spec["batches"]):
+        batch = rays_lib.to_device(parallel.shard_batch(batch), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = step(batch, i, i / config.max_steps, gen)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        stats.append({k: float(s[k]) for k in ("loss", "psnr", "grad_norm", "rm_s", "vr_s")
+                      if k in s})
+    return {"stats": stats, "step_ms": step_ms, "launches": _launches()}
+
+
+def _ddp_param_errors(config, got, model):
+    """Card parameters of two ranks against one process's after the same
+    steps: the share of entries within 1e-5 + 1e-4 |p|, and the largest
+    difference against Adam's bound on two trajectories' parting (each
+    moves an entry by at most lr (1 - b1) / sqrt(1 - b2) a step)."""
+    diffs, close, total = [], 0, 0
+    for name, p in model.named_parameters():
+        want = p.detach().cpu()
+        d = (got[name] - want).abs()
+        close += int((d <= DDP_PARAM_ATOL + DDP_PARAM_RTOL * want.abs()).sum())
+        total += d.numel()
+        diffs.append(float(d.max()))
+    step_bound = config.lr_init * (1 - config.adam_beta1) / math.sqrt(1 - config.adam_beta2)
+    return {"max_abs": max(diffs), "share_close": close / total,
+            "adam_bound": 2 * step_bound * config.max_steps}
+
+
+def phase_ddp(smi):
+    """Data parallelism on one card: (a) world 1 under NCCL through the CLI,
+    (b) world 2 under gloo with both ranks on cuda:0, held against one
+    process fed the concatenated batches and the same generator."""
+    with tempfile.TemporaryDirectory() as workdir:
+        mip_config = _flagship_config(workdir).replace(max_steps=DDP_STEPS)
+        scene = _scene(mip_config, "train", 0)
+        ngp_config = _ngp_config(workdir)
+        ngp_scene = _scene(ngp_config, "train", 0)
+        ngp_model = step_lib.build_model(
+            ngp_config, generator=torch.Generator().manual_seed(0)).to("cuda")
+        update = step_lib.make_occupancy_update_fn(ngp_config, ngp_model)
+        grid = update(ngp_model.occupancy, torch.Generator(device="cuda").manual_seed(1), True)
+        ngp_model.occupancy.copy_(grid)
+        mip_state = step_lib.build_model(
+            mip_config, generator=torch.Generator().manual_seed(0)).state_dict()
+        mip = {"config": CONFIG, "overrides": [f"max_steps={DDP_STEPS}"],
+               "state": mip_state, "cams": scene.cameras_on("cpu"),
+               "batches": [scene.sample_batch() for _ in range(DDP_STEPS)]}
+        inputs = {
+            "mip": mip,
+            "mip_remat": dict(mip, overrides=mip["overrides"] + ["remat=dots"]),
+            "ngp": {"config": NGP_CONFIG, "overrides": [f"max_steps={DDP_NGP_STEPS}"],
+                    "state": {k: v.cpu() for k, v in ngp_model.state_dict().items()},
+                    "cams": ngp_scene.cameras_on("cpu"),
+                    "batches": [ngp_scene.sample_batch() for _ in range(DDP_NGP_STEPS)]},
+        }
+        occupied = _occupied_share(ngp_model)
+        del ngp_model, update
+        torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (nccl,) = _ddp_spawn("nccl", 1, workdir)
+        nccl_seconds = time.perf_counter() - t0
+        if nccl["still_active"] is not True:
+            raise AssertionError("the CLI left a group it did not join")
+        t0 = time.perf_counter()
+        ranks = _ddp_spawn("gloo", 2, workdir)
+        gloo_seconds = time.perf_counter() - t0
+
+        gloo, checks = {}, {}
+        for label, per_step in (("mip", _only(K1a=3, K1b=3)),
+                                ("mip_remat", _only(K1a=6, K1b=3)), ("ngp", _ngp_launches(1))):
+            spec = inputs[label]
+            config, model = _ddp_model(spec, "cuda")
+            one = _ddp_steps(config.replace(max_steps=len(spec["batches"])), model, spec, "cuda")
+            got = torch.load(os.path.join(workdir, f"{label}_params.pt"), weights_only=True)
+            steps = len(spec["batches"])
+            expected = {k: v * steps for k, v in per_step.items()}
+            for r, rank in enumerate(ranks):
+                run = rank[label]
+                if run["launches"] != expected or not run["replicated"]:
+                    raise AssertionError(f"gloo {label} rank {r}: launches {run['launches']}, "
+                                         f"replicated {run['replicated']}")
+                for a, b in zip(run["stats"], ranks[0][label]["stats"]):
+                    if a != b:
+                        raise AssertionError(f"gloo {label}: the ranks' stats differ {a} {b}")
+            loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                           for a, b in zip(ranks[0][label]["stats"], one["stats"]))
+            norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                           for a, b in zip(ranks[0][label]["stats"], one["stats"]))
+            params = _ddp_param_errors(config, got, model)
+            checks[label] = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err, **params}
+            if loss_err > DDP_LOSS_RTOL or norm_err > DDP_GRAD_NORM_RTOL or \
+                    params["share_close"] < DDP_PARAM_SHARE or \
+                    params["max_abs"] > params["adam_bound"]:
+                raise AssertionError(f"gloo {label}: 2 ranks against one process {checks[label]}")
+            gloo[label] = {"step_ms_per_rank": [rank[label]["step_ms"] for rank in ranks],
+                           "one_process_step_ms": one["step_ms"],
+                           "launches_per_rank": [rank[label]["launches"] for rank in ranks],
+                           "stats": ranks[0][label]["stats"], "one_process": one["stats"]}
+            del model
+            torch.cuda.empty_cache()
+    emit({"phase": "ddp", "nvidia_smi": smi,
+          "nccl_world1": {"seconds": nccl_seconds, "backend": nccl["backend"],
+                          "device": nccl["device"],
+                          "mip": {k: nccl["mip"][k] for k in (
+                              "step_ms", "median_step_ms_after_first", "rays_per_sec_per_chip",
+                              "launches", "losses", "checkpoints", "files")},
+                          "mip_eval": nccl["mip"]["eval"][0]["mean"],
+                          "ngp": {k: nccl["ngp"][k] for k in (
+                              "step_ms", "median_step_ms_after_first", "launches", "losses")},
+                          "allreduce": nccl["allreduce"],
+                          "timed_same_process": _timed_summary(nccl["timed"])},
+          "gloo_world2": {"seconds": gloo_seconds, "devices": [r["device"] for r in ranks],
+                          "allreduce": [r["mip"]["allreduce"] for r in ranks],
+                          "ngp_untrained_occupied_share": occupied, **gloo},
+          "against_one_process": checks,
+          "tolerances": {"loss_rel": DDP_LOSS_RTOL, "grad_norm_rel": DDP_GRAD_NORM_RTOL,
+                         "param_atol": DDP_PARAM_ATOL, "param_rtol": DDP_PARAM_RTOL,
+                         "param_share": DDP_PARAM_SHARE}})
+    return {"ddp_nccl_mip": nccl["mip"]["launches"], "ddp_nccl_ngp": nccl["ngp"]["launches"],
+            **{f"ddp_gloo_{label}_rank{r}": rank[label]["launches"]
+               for label in ("mip", "mip_remat", "ngp") for r, rank in enumerate(ranks)}}
+
+
+def _timed_summary(timed):
+    """Each run's median step ms and the group's cost at world 1: its
+    median less the mean of the medians without a group before and after."""
+    out = {}
+    for label in ("mip", "ngp"):
+        med = {run: timed[run][label]["median_ms"] for run in timed}
+        alone = (med["one_process_before"] + med["one_process_after"]) / 2
+        out[label] = {"median_ms": med, "world1_minus_one_process_ms": med["world1"] - alone,
+                      "step_ms": {run: timed[run][label]["step_ms"] for run in timed}}
+    return out
+
+
+def ddp_worker(part, workdir):
+    """A rank of phase ddp (launched by `_ddp_spawn` through torchrun)."""
+    out = {"nccl": _ddp_worker_nccl, "gloo": _ddp_worker_gloo}[part](workdir)
+    with open(os.path.join(workdir, f"{part}_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def summary(k, launches):
     errors, timing = k["errors"], k["timing"]
     scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
@@ -3135,7 +3485,7 @@ def summary(k, launches):
                      "blender_eval")
         return sum(counts[kernel] for p, counts in launches.items()
                    if p in main_path or p.startswith(("cameras_", "depth_losses_",
-                                                      "ngp_layouts_", "mip_options_")))
+                                                      "ngp_layouts_", "mip_options_", "ddp_")))
 
     k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
@@ -3147,8 +3497,12 @@ def summary(k, launches):
                            "and fisheye cameras (phase cameras), mip and NGP under the mse, urf "
                            "and nll depth losses (phase depth_losses), mip under the Ref-NeRF, "
                            "GLO, exposure, cylinder and rawnerf options and NGP under rawnerf "
-                           "(phase mip_options) and NGP on the Blender "
-                           "layout, trained and evaluated (phase blender)"}
+                           "(phase mip_options), NGP on the Blender "
+                           "layout, trained and evaluated (phase blender), and the flagship "
+                           "and NGP as ranks of a process group (phase ddp: world 1 under "
+                           "NCCL, world 2 under gloo on one card, the flagship plain and "
+                           "under remat=dots; counts per rank, each rank "
+                           "launching a step's kernels on its own rows)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     oct_path = f"{OCT_SCAN_PATH[0]}x{OCT_SCAN_PATH[1]}"
     kernels = [
@@ -3181,9 +3535,10 @@ def summary(k, launches):
                           "float32 and bf16, the NGP quality gate (phase gate), NGP under the "
                           "mse, urf and nll depth losses (phase depth_losses), on the "
                           "Blender layout (phase blender), NGP under its own loss and rawnerf's "
-                          "(phase mip_options), and the oct layout's one scan a step "
+                          "(phase mip_options), the oct layout's one scan a step "
                           "and osplit's HDR field with extrinsics refinement (phase "
-                          "ngp_layouts)",
+                          "ngp_layouts), and NGP as a rank of a process group (phase ddp: "
+                          "16 a step on each rank)",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
          "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                     for e in k["bf16_errors"].values()),
@@ -3226,7 +3581,10 @@ def summary(k, launches):
 
 
 def main():
-    phase_device()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(*sys.argv[2:4])
+        return
+    smi = phase_device()
     phase_build()
     k = phase_kernels()
     launches = {}
@@ -3265,6 +3623,7 @@ def main():
     launches.update(phase_lpips())
     launches.update(phase_gate())
     launches.update(phase_blender())
+    launches.update(phase_ddp(smi))
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,6 @@
 """Ray datasets, the driving-scene loader and the prefetching batcher.
 
-Port of the reference package's `data/datasets.py`, for one process:
-`RayDataset`, `PrefetchIterator`, the in-memory `SyntheticDataset` and
+Port of the reference package's `data/datasets.py`: `RayDataset`, `PrefetchIterator`, the in-memory `SyntheticDataset` and
 `SphereSceneDataset`, the driving-scene and NeRF++ layouts
 (`DrivingSceneDataset`, `NerfppSceneDataset`), and the public scene
 readers `BlenderDataset`, `TanksAndTemplesDataset`,
@@ -10,7 +9,10 @@ with the helpers they use (`load_image`, `decode_depth_png`,
 `split_indices`, `trace_sphere_scene`, `decompose_projection`). Images and random
 draws stay in numpy with the same RNG streams, so a seed gives the same
 batches as the reference; batches come out as dataclasses of CPU tensors.
-Train batches carry `Pixels` (cast to rays on the GPU inside the step); eval
+In a process group (`parallel/`) each rank serves its share of the global
+batch: `batch_size` is the global batch over the world size (ValueError
+where it does not divide), and rank r draws from its own stream, seeded
+20230717 + r, as the reference's process r does. Train batches carry `Pixels` (cast to rays on the GPU inside the step); eval
 batches are cast on the host. PNGs are read with the port's own codec
 (`data/png.py`); a JPEG input (the Free View Synthesis layout allows
 `im_*.jpg`) raises ValueError.
@@ -31,6 +33,7 @@ from outdoor_nerf_depth_torch.data import cameras as cameras_lib
 from outdoor_nerf_depth_torch.data import colmap
 from outdoor_nerf_depth_torch.data import png
 from outdoor_nerf_depth_torch.data import rays as rays_lib
+from outdoor_nerf_depth_torch.parallel import mesh
 
 _INVALID_DEPTH = -1.0
 
@@ -117,8 +120,14 @@ class RayDataset:
     def __init__(self, split: str, global_batch_size: int, cast_on_device: bool = True):
         self.split = split
         self.cast_on_device = cast_on_device
-        self.batch_size = global_batch_size
-        self._rng = np.random.default_rng(20230717)
+        self._process_index, self._process_count = mesh.rank(), mesh.world()
+        if global_batch_size % self._process_count:
+            raise ValueError(
+                f"global batch {global_batch_size} not divisible by "
+                f"{self._process_count} processes"
+            )
+        self.batch_size = global_batch_size // self._process_count
+        self._rng = np.random.default_rng(20230717 + self._process_index)
 
     def _finalize(self):
         self.n_images, self.height, self.width = self.images.shape[:3]
@@ -162,7 +171,7 @@ class RayDataset:
         )
 
     def sample_batch(self) -> rays_lib.Batch:
-        """Random rays across all images."""
+        """Random rays across all images: this rank's share of the batch."""
         n = self.batch_size
         cam_idx = self._rng.integers(0, self.n_images, (n,))
         px = self._rng.integers(0, self.width, (n,))

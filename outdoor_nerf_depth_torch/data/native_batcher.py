@@ -16,6 +16,12 @@ raises: there is no fallback to the numpy sampler.
 
 The dataplane ignores lens distortion and the camera type: a lensed scene
 trains on pinhole rays through it, as in the reference.
+
+In a process group each rank draws `dataset.batch_size` rays, its share of
+the global batch, from a batcher seeded with the config's seed alone, as
+the reference loop builds it on every process: so every rank draws the
+same rays, and the global batch holds W copies of one share (a fault shared
+with the reference, kept as it is).
 """
 
 from __future__ import annotations

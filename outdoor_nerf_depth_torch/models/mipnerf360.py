@@ -29,6 +29,7 @@ from torch import nn
 
 from outdoor_nerf_depth_torch.models.mlps import ConeFieldMLP
 from outdoor_nerf_depth_torch.ops import spaces, stepfuns, volren
+from outdoor_nerf_depth_torch.parallel import mesh
 
 
 class ProposalModel(nn.Module):
@@ -203,7 +204,7 @@ class ProposalModel(nn.Module):
             elif generator is None:
                 bg_rgbs = 0.5 * (lo + hi)
             else:
-                bg_rgbs = lo + (hi - lo) * torch.rand(
+                bg_rgbs = lo + (hi - lo) * mesh.rand(
                     weights.shape[:-1] + (3,), generator=generator,
                     dtype=weights.dtype, device=weights.device,
                 )

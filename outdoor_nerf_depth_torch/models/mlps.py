@@ -33,6 +33,7 @@ from torch.nn import functional as F
 from torch.utils._python_dispatch import _disable_current_modes
 
 from outdoor_nerf_depth_torch.ops import mathx, refdirs, spaces
+from outdoor_nerf_depth_torch.parallel import mesh
 
 
 class Dense(nn.Linear):
@@ -238,7 +239,7 @@ class ConeFieldMLP(nn.Module):
         else:
             (raw_density, x), normals = self.predict_density(means, covs), None
         if generator is not None and self.density_noise > 0:
-            raw_density = raw_density + self.density_noise * torch.randn(
+            raw_density = raw_density + self.density_noise * mesh.randn(
                 raw_density.shape, generator=generator, dtype=raw_density.dtype,
                 device=raw_density.device)
         out = {"density": F.softplus(raw_density + self.density_bias), "normals": normals,
@@ -259,7 +260,7 @@ class ConeFieldMLP(nn.Module):
         if self.bottleneck_width > 0:
             b = self.bottleneck(x)
             if generator is not None and self.bottleneck_noise > 0:
-                noise = torch.randn(b.shape, generator=generator, dtype=torch.float32,
+                noise = mesh.randn(b.shape, generator=generator, dtype=torch.float32,
                                     device=b.device)
                 b = b + self.bottleneck_noise * noise.to(b.dtype)
             parts.append(b)

@@ -25,6 +25,7 @@ from torch import nn
 
 from outdoor_nerf_depth_torch.models.mlps import PointFieldMLP
 from outdoor_nerf_depth_torch.ops import geometry, mathx, stepfuns
+from outdoor_nerf_depth_torch.parallel import mesh
 
 _HUGE = 1e10
 _TINY = 1e-6
@@ -183,7 +184,7 @@ def _jitter_points(generator: torch.Generator, z: torch.Tensor) -> torch.Tensor:
     mid = 0.5 * (z[..., 1:] + z[..., :-1])
     upper = torch.cat([mid, z[..., -1:]], dim=-1)
     lower = torch.cat([z[..., :1], mid], dim=-1)
-    u = torch.rand(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+    u = mesh.rand(z.shape, generator=generator, dtype=z.dtype, device=z.device)
     return lower + (upper - lower) * u
 
 

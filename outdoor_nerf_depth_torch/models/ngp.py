@@ -41,6 +41,7 @@ from torch.nn import functional as F
 from outdoor_nerf_depth_torch.models.mlps import _dense
 from outdoor_nerf_depth_torch.ops import hashgrid, mathx, volren
 from outdoor_nerf_depth_torch.ops import occupancy as occ
+from outdoor_nerf_depth_torch.parallel import mesh
 
 
 class HashGridField(nn.Module):
@@ -290,7 +291,7 @@ class HashGridModel(nn.Module):
         elif generator is None:
             bg = 0.5 * (lo + hi)
         else:
-            bg = lo + (hi - lo) * torch.rand(acc.shape + (3,), generator=generator,
+            bg = lo + (hi - lo) * mesh.rand(acc.shape + (3,), generator=generator,
                                              device=acc.device)
         rgb_map = torch.sum(weights[..., None] * rgb, dim=-2) + (1.0 - acc[..., None]) * bg
         depth = torch.sum(weights * t_mid, dim=-1)

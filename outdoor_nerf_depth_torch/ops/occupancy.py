@@ -24,6 +24,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from outdoor_nerf_depth_torch.parallel import mesh
+
 SQRT3 = float(np.sqrt(3.0))
 # The compaction sort key puts invalid slots after valid ones with this
 # offset, as the reference does; the plan is exact for max_samples <= 256.
@@ -233,13 +235,25 @@ def batch_compaction_plan(valid: torch.Tensor, budget_total: int):
     budget, every ray loses its farthest samples alike. Returns (sel
     [budget] flat slot ids, inv [m] rank of each flat slot; >= budget means
     not evaluated).
+
+    Under `parallel.mesh.row_shard` the rows are this rank's block of a
+    batch that several ranks hold, `budget_total` is this rank's share of
+    the budget, and the plan is the one the sort would make over the whole
+    batch (rows in rank order), restricted to this rank's slots: each rank
+    keeps the prefix of its own sorted order that falls before the global
+    cut, from the ranks' histograms of sort keys
+    (`parallel.mesh.kept_of_global_cut`). On overflow the cut lies within
+    one slot index, where the lower ranks come first, so a rank may keep
+    more or fewer than its share, and `sel` is as long as what it keeps.
     """
-    m = valid.numel()
-    slot = torch.arange(valid.shape[-1], device=valid.device).expand(valid.shape).reshape(m)
+    m, k = valid.numel(), valid.shape[-1]
+    slot = torch.arange(k, device=valid.device).expand(valid.shape).reshape(m)
     key = torch.where(valid.reshape(m), 0, _INVALID_KEY) + slot
     order = torch.sort(key, stable=True).indices
     inv = torch.empty_like(order)
     inv[order] = torch.arange(m, device=valid.device)
+    budget_total = mesh.kept_of_global_cut(budget_total, lambda: torch.bincount(
+        torch.where(key >= _INVALID_KEY, key - _INVALID_KEY + k, key), minlength=2 * k))
     return order[:budget_total], inv
 
 
@@ -292,7 +306,7 @@ def march_candidates(generator, t_near, t_far, n_candidates: int, exponential: b
         edges = t_near[..., None] + (t_far - t_near)[..., None] * frac
     if generator is not None:
         widths = torch.diff(edges, dim=-1)
-        u = torch.rand(widths[..., :-1].shape, generator=generator, device=edges.device) - 0.5
+        u = mesh.rand(widths[..., :-1].shape, generator=generator, device=edges.device) - 0.5
         interior = edges[..., 1:-1] + u * torch.minimum(widths[..., :-1], widths[..., 1:])
         edges = torch.cat([edges[..., :1], interior, edges[..., -1:]], dim=-1)
     return edges

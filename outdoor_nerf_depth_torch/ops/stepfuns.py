@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from outdoor_nerf_depth_torch.ops import mathx
+from outdoor_nerf_depth_torch.parallel import mesh
 
 _EPS = torch.finfo(torch.float32).eps
 _INF = float("inf")
@@ -125,7 +126,7 @@ def sample(
         jitter_span = (1.0 - u_ceil) / (num_samples - 1) - _EPS
         n_jitters = 1 if single_jitter else num_samples
         base = _linspace(0.0, 1.0 - u_ceil, num_samples, t)
-        jitter = torch.rand(
+        jitter = mesh.rand(
             t.shape[:-1] + (n_jitters,), generator=generator, dtype=t.dtype, device=t.device
         )
         u = base + jitter * jitter_span

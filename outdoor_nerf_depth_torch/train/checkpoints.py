@@ -139,7 +139,15 @@ class CheckpointManager:
 
         Returns (state, step), or (None, 0) when no checkpoint exists.
         """
-        step = latest_step(self.directory) if step is None else step
-        if step is None:
-            return None, 0
-        return _load(os.path.join(self.directory, str(step), STATE_FILENAME)), int(step)
+        return restore(self.directory, step)
+
+
+def restore(directory: str, step: Optional[int] = None):
+    """The state of the latest (or given) step under `directory`, tensors on
+    the CPU, without a manager (which would clear unfinished writes): what
+    every rank of a process group reads while rank 0 alone saves. Returns
+    (state, step), or (None, 0) when no checkpoint exists."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        return None, 0
+    return _load(os.path.join(directory, str(step), STATE_FILENAME)), int(step)

@@ -1,4 +1,4 @@
-"""The training loop and the evaluator, on one device.
+"""The training loop and the evaluator, on one device or over a process group.
 
 Port of `train` and `evaluate` from the reference package's `train/loop.py`
 for every dataset the reference's `build_dataset` reads (`synthetic`,
@@ -34,6 +34,17 @@ past `max_steps`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
 CUDA they raise instead of falling back.
+
+In a process group (`parallel/`, joined by `python -m
+outdoor_nerf_depth_torch` under torchrun) every rank runs `train` and
+`evaluate`: each samples its share of the global batch, the parameters
+start as rank 0's, the step is the global batch's (`train/step.py`), and
+the test renders are split over the ranks. Rank 0 alone writes
+`config.json`, the sidecar, the log lines, the `MetricWriter`'s scalars,
+the renders, the profiler trace and the checkpoints; after a save the
+ranks meet at a barrier, and on resume every rank loads the checkpoint
+(the reference lets Orbax coordinate its multi-host saves). The log's
+`rays_per_sec_per_chip` is the global rate over the world size.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from outdoor_nerf_depth_torch import parallel
 from outdoor_nerf_depth_torch.data import datasets as datasets_lib
 from outdoor_nerf_depth_torch.data import native_batcher
 from outdoor_nerf_depth_torch.data import rays as rays_lib
@@ -58,14 +70,32 @@ from outdoor_nerf_depth_torch.utils.logging import MetricWriter
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means CUDA; raises when CUDA is absent rather than using the CPU."""
+    """`None` means CUDA (in a process group, the rank's current card);
+    raises when CUDA is absent rather than using the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU"
             )
-        device = "cuda"
+        device = torch.device("cuda", torch.cuda.current_device()) if parallel.active() else "cuda"
     return torch.device(device)
+
+
+class _NoWriter:
+    """The metric writer of ranks other than 0: writes nothing."""
+
+    def scalars(self, *args, **kwargs):
+        pass
+
+    def image(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _quiet(line):
+    del line
 
 
 def set_full_float32():
@@ -186,8 +216,11 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     set_full_float32()
     step_lib.check_supported(config)
     max_steps = max_steps or config.max_steps
+    lead = parallel.rank() == 0
+    log_fn = log_fn if lead else _quiet
     os.makedirs(config.exp_dir, exist_ok=True)
-    save_config(config, os.path.join(config.exp_dir, "config.json"))
+    if lead:
+        save_config(config, os.path.join(config.exp_dir, "config.json"))
 
     # Idempotent-run guard: a checkpoint at or past max_steps means this run
     # finished; hand back the restored model without loading the data.
@@ -202,7 +235,7 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     if hasattr(dataset, "scene_scale"):
         config = config.replace(depth_scale=float(dataset.scene_scale))
     init_gen = torch.Generator().manual_seed(config.seed)
-    model = step_lib.build_model(config, generator=init_gen).to(device)
+    model = parallel.put_replicated(step_lib.build_model(config, generator=init_gen).to(device))
     optimizer, lr_fn = step_lib.make_optimizer(config, model)
     train_step = step_lib.make_train_step(
         config, model, optimizer, lr_fn,
@@ -215,9 +248,13 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     # optimizer and the generator, so a resumed run continues the same run.
     meta = step_lib.checkpoint_meta(config, model)
     ckpt_lib.check_model_meta(ckpt_dir, meta)
-    ckpt_lib.write_model_meta(ckpt_dir, meta)
-    ckpt = ckpt_lib.CheckpointManager(ckpt_dir, keep=config.keep_checkpoints)
-    state, start_step = ckpt.restore()
+    parallel.barrier()  # every rank has read the sidecar before rank 0 rewrites it
+    ckpt = None
+    if lead:
+        ckpt_lib.write_model_meta(ckpt_dir, meta)
+        ckpt = ckpt_lib.CheckpointManager(ckpt_dir, keep=config.keep_checkpoints)
+    parallel.barrier()
+    state, start_step = ckpt_lib.restore(ckpt_dir)
     if state is not None:
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
@@ -235,15 +272,16 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
         # reference logs it and falls back to `dataset.sample_batch`).
         sample_fn = native_batcher.NativeRayBatcher(dataset, seed=config.seed).sample_batch
     batches = datasets_lib.PrefetchIterator(sample_fn)
-    writer = MetricWriter(os.path.join(config.exp_dir, "logs"))
+    writer = MetricWriter(os.path.join(config.exp_dir, "logs")) if lead else _NoWriter()
 
     test_dataset = None
     if config.train_render_every > 0:
         test_dataset = build_dataset(config, "test")
 
     n_fuse = max(1, config.steps_per_dispatch)
-    profile = _ProfileWindow(config.profile_start_step, config.profile_num_steps,
+    profile = _ProfileWindow(config.profile_start_step if lead else 0, config.profile_num_steps,
                              os.path.join(config.exp_dir, "trace"), device)
+    n_ranks = parallel.world()
     history = []
     t_last, rays_since = time.perf_counter(), 0
     step = start_step
@@ -270,7 +308,7 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
                 "loss": loss,
                 "psnr": float(stats["psnr"]),
                 "rays_per_sec": rays_since / (now - t_last),
-                "rays_per_sec_per_chip": rays_since / (now - t_last),
+                "rays_per_sec_per_chip": rays_since / (now - t_last) / n_ranks,
                 "grad_norm": float(stats["grad_norm"]),
                 **{f"loss_{k}": float(v) for k, v in stats["loss_terms"].items()},
                 **{k: float(stats[k]) for k in ("rm_s", "vr_s") if k in stats},
@@ -300,8 +338,11 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
                                **{k: round(v, 4) for k, v in m.items()}}))
         # The checkpoint labelled N holds N trained steps.
         if crossed(prev, step, config.checkpoint_every) or step == max_steps:
-            ckpt.save(step, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                             "step": step, "generator": generator.get_state()})
+            if lead:
+                ckpt.save(step, {"model": model.state_dict(),
+                                 "optimizer": optimizer.state_dict(),
+                                 "step": step, "generator": generator.get_state()})
+            parallel.barrier()
     profile.after(step, force=True)  # a window that ran past max_steps
     writer.close()
     return model, history
@@ -316,10 +357,14 @@ def evaluate(config: Config, model, split: str = "test", max_images=None,
     `depth_###.png` (uint16, metres * 256) and `summary_###.png` (render,
     ground truth, the depth visualization and, where the view has ground
     truth depth, the signed depth error). Returns (mean metrics, per-image
-    metrics).
+    metrics). In a process group every rank renders its share of each view
+    and returns the metrics; rank 0 alone logs and writes the renders.
     """
     device = resolve_device(device)
     set_full_float32()
+    lead = parallel.rank() == 0
+    log_fn = log_fn if lead else _quiet
+    save_renders = save_renders and lead
     dataset = build_dataset(config, split)
     if hasattr(dataset, "scene_scale"):
         config = config.replace(depth_scale=float(dataset.scene_scale))

@@ -22,11 +22,16 @@ from outdoor_nerf_depth_torch.ops import mathx, stepfuns
 URF_SIGMA_SCALE = 3.0
 
 
-def rgb_loss(pred, target, lossmult=None, kind: str = "mse", charb_padding=0.001):
-    """Per-level photometric loss, lossmult-weighted mean. Returns (loss, mse)."""
+def rgb_loss(pred, target, lossmult=None, kind: str = "mse", charb_padding=0.001,
+             denom=None):
+    """Per-level photometric loss, lossmult-weighted mean. Returns (loss, mse).
+
+    `denom` replaces the sum of the (broadcast) lossmult: under data
+    parallelism it is the sum over the whole batch, so the loss is this
+    rank's share of the batch's loss."""
     resid_sq = (pred - target) ** 2
     lossmult = torch.ones_like(resid_sq) if lossmult is None else lossmult.expand(resid_sq.shape)
-    denom = torch.clamp(lossmult.sum(), min=1e-8)
+    denom = torch.clamp(lossmult.sum() if denom is None else denom, min=1e-8)
     mse = (lossmult * resid_sq).sum() / denom
     if kind == "mse":
         per_elem = resid_sq
@@ -44,15 +49,19 @@ def rgb_loss(pred, target, lossmult=None, kind: str = "mse", charb_padding=0.001
     return (lossmult * per_elem).sum() / denom, mse
 
 
-def expected_depth_loss(depth_pred, depth_sup, kind: str = "mse", reduce: str = "mean_all"):
-    """MSE/L1 between expected termination depth and the prior (<=0 invalid)."""
+def expected_depth_loss(depth_pred, depth_sup, kind: str = "mse", reduce: str = "mean_all",
+                        n_valid=None):
+    """MSE/L1 between expected termination depth and the prior (<=0 invalid).
+
+    `n_valid` replaces the count of valid rays that "mean_valid" divides by
+    (the whole batch's count under data parallelism)."""
     mask = (depth_sup > 0).to(depth_pred.dtype)
     resid = mask * depth_pred - mask * depth_sup
     per_ray = resid**2 if kind == "mse" else resid.abs()
     if reduce == "mean_all":
         return per_ray.mean()
     if reduce == "mean_valid":
-        return per_ray.sum() / torch.clamp(mask.sum(), min=1.0)
+        return per_ray.sum() / torch.clamp(mask.sum() if n_valid is None else n_valid, min=1.0)
     raise ValueError(f"unknown reduce {reduce!r}")
 
 
@@ -100,14 +109,16 @@ def urban_rf_depth_loss(weights, depth_sup, depth_pred, steps, sigma):
 
 
 def depth_loss_from_history(level_history: dict, depth_sup, depth_pred, dirs, sigma,
-                            kind: str, reduce: str = "mean_all", fg_far_mask: bool = False):
+                            kind: str, reduce: str = "mean_all", fg_far_mask: bool = False,
+                            n_valid=None):
     """Dispatch a depth loss given one level's ray history ('tdist' edges or
     'steps'/'lengths' points). `sigma` is the scene-scaled variance knob:
     kl's window variance, urf's line-of-sight half-width (3 of its std) and,
     through its square root, nll's measurement std. Only kl drops rays
-    beyond NeRF++'s `fg_far`."""
+    beyond NeRF++'s `fg_far`. `n_valid` goes to mse's and l1's "mean_valid"."""
     if kind in ("mse", "l1"):
-        return expected_depth_loss(depth_pred, depth_sup, kind=kind, reduce=reduce)
+        return expected_depth_loss(depth_pred, depth_sup, kind=kind, reduce=reduce,
+                                   n_valid=n_valid)
     weights = level_history["weights"]
     if "tdist" in level_history:
         tdist = level_history["tdist"]

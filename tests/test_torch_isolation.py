@@ -226,3 +226,41 @@ def test_pose_estimation_runs_with_opencv_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.parallel",
+    "outdoor_nerf_depth_torch.parallel.mesh",
+    "outdoor_nerf_depth_torch.__main__",
+    "outdoor_nerf_depth_torch.train.step",
+    "outdoor_nerf_depth_torch.train.loop",
+    "outdoor_nerf_depth_torch.train.losses",
+    "outdoor_nerf_depth_torch.train.checkpoints",
+    "outdoor_nerf_depth_torch.data.datasets",
+    "outdoor_nerf_depth_torch.ops.occupancy",
+    "outdoor_nerf_depth_torch.tools.slim_checkpoint",
+    "outdoor_nerf_depth_torch.tools.eval_budget_checkpoint",
+    "outdoor_nerf_depth_torch.tools.fixture_ablation",
+])
+def test_the_data_parallel_and_checkpoint_tool_modules_are_checked(module):
+    """The modules of data parallelism (the collectives, the step, the loop,
+    the CLI) and the checkpoint tools are among those the tests above import
+    with the reference stack blocked and scan for its names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    if not path.is_file():
+        path = REPO / module.replace(".", "/") / "__init__.py"
+    assert not BANNED.search(path.read_text())
+
+
+def test_the_collectives_module_imports_torch_only():
+    """`parallel/` imports torch and the standard library, nothing else."""
+    roots = set()
+    for path in (PORT / "parallel").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                roots.add(node.module.split(".")[0])
+    assert roots - set(sys.stdlib_module_names) - {"__future__"} == {"torch",
+                                                                      "outdoor_nerf_depth_torch"}
