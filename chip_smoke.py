@@ -181,6 +181,14 @@ non-zero without the final line:
               for 20 steps, then a test view rendered before and after the
               embeddings are perturbed, which must be equal (eval uses
               neither); cylinder rays for 10 steps; 3 K1a and 3 K1b a mip step
+  viewer      tools.viewer on phase kitti's checkpoints: three orbit poses of
+              the flagship and one of NGP (with its occupancy grid) rendered
+              by render_view at 200x300 on the card, each equal bit for bit
+              to render_image on the same rays, with 3 K1a (mip) and 1 K1a
+              (NGP) a render chunk; ms per view; the fixture's cameras
+              exported as frusta JSON and drawn by the --frusta-out CLI into
+              a 960x960 PNG with blue and red lines; each K1a shape of the
+              renders held against the plain version after them, as below
   blender     configs/blender_ngp.json at full width (hash grid L16 F2
               T2^19, 128 samples, 512 candidates, batch 8192, white
               background) on a Synthetic-NeRF-shaped layout written by
@@ -189,6 +197,30 @@ non-zero without the final line:
               300 steps of the config's schedule (past its 256 warmup steps;
               1 K1a, 1 K1b and 16 K2a a step), ms a step and rays/s, and the
               test views' PSNR (40 K1a a view)
+  public_bench tools.run_public_benchmark synthetic_nerf through its main, on
+              phase blender's layout as a one-scene suite: NGP in bf16 at the
+              suite's batch 16384 with 8 steps a dispatch for 200 steps and
+              its 4 test views; the summary's PSNR and SSIM, ms a step from
+              the loop's log lines, 1 K1a, 1 K1b and 16 K2a a step and 1 K1a
+              a render chunk; K2a only at a shape phase kernels checks, and
+              each K1 shape that phase kernels does not check held against
+              the plain version after the run (K1 at FWD_ATOL/BWD_ATOL, K2a
+              at SCAN_RTOL; the kernels line takes these errors in)
+  bench_probes each bench probe once at full width with the fewest
+              repetitions that give a median, each one's dict emitted:
+              probes.ngp_step (8192 rays, 64 samples, 20 steps with refreshes
+              before steps 0 and 16; 1 K1a, 1 K1b, 16 K2a a step),
+              probes.ngp_bwd (the oct table gradient's stages at 8192 x 64
+              points; K2a once a call of the scan, the bf16 and factored
+              variants and the whole backward), probes.ngp_eval (chunks 8192
+              and 32768; K1a only on the dense renderer), each NGP probe's
+              K1 and K2a shapes held against the plain version after it, as
+              in public_bench (here K1 at [8192, 64] and [32768, 64] and K2a
+              at [8388608, 16]; ngp_step's K2a shape [524288, 16] is one of
+              phase kernels'),
+              probes.nerfpp_mfu ((1024, 8), (1024, 32), (4096, 8)), all seven
+              of probes.nerfpp_ablate at 2 timed dispatches and
+              probes.profile_step; no kernel launches on the NeRF++ probes
   ddp         data parallelism over torch.distributed on the one card, each
               rank a process of this script launched by torchrun
               (`--standalone`): (a) world 1 under NCCL on cuda:0: the same
@@ -248,18 +280,26 @@ from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import refdirs, volren, volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bwd  # noqa: E402
+from outdoor_nerf_depth_torch.probes import (nerfpp_ablate, nerfpp_mfu, ngp_bwd,  # noqa: E402
+                                             ngp_eval, ngp_step, profile_step)
+from outdoor_nerf_depth_torch.probes import card as probe_card  # noqa: E402
+from outdoor_nerf_depth_torch.probes import kernel_launches as _launches  # noqa: E402
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib  # noqa: E402
 from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
 from outdoor_nerf_depth_torch.tools import make_blender_fixture  # noqa: E402
 from outdoor_nerf_depth_torch.tools import eval as eval_tool  # noqa: E402
 from outdoor_nerf_depth_torch.tools import quality_gate  # noqa: E402
 from outdoor_nerf_depth_torch.tools import render as render_tool  # noqa: E402
+from outdoor_nerf_depth_torch.tools import run_public_benchmark  # noqa: E402
+from outdoor_nerf_depth_torch.tools import viewer  # noqa: E402
+from outdoor_nerf_depth_torch.data import preprocess  # noqa: E402
 from outdoor_nerf_depth_torch.tools import train_prior  # noqa: E402
 from outdoor_nerf_depth_torch.train import lpips as lpips_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train import step as step_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.config import load_config  # noqa: E402
 from outdoor_nerf_depth_torch.utils import image as image_lib  # noqa: E402
+from outdoor_nerf_depth_torch.utils import vis as vis_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train.loop import (  # noqa: E402
     build_dataset, evaluate, set_full_float32, train)
 
@@ -292,6 +332,10 @@ NGP_K1_SHAPE = (8192, 128)  # NGP: batch x max_samples, once per step and render
 # S > 96 and S % 4 == 0 ((130, 192)), its float2 build where 32 < S <= 64 and
 # S is even, and its scalar build elsewhere ((7, 33), (5, 126), (9, 66)).
 K1_EDGE_SHAPES = [(7, 33), (130, 192), (5, 126), (9, 66)]
+# Phase kernels holds K1 against its plain version at these shapes; the
+# viewer, public_bench and bench_probes paths record theirs and hold each
+# other one after they run (`_hold_path_shapes`).
+K1_CHECK_SHAPES = [(4096, 64), (4096, 32), (16384, 32), (16384, 64), NGP_K1_SHAPE] + K1_EDGE_SHAPES
 K1_FLOOR_SHAPE = (1, 64)  # one ray: K1's time per call is then launch and latency
 # K2a: one inclusive scan per hash level on the [points, 8F] table-gradient
 # stream. Per element: read 4 B, write 4 B, one add.
@@ -440,6 +484,24 @@ DDP_TIMED_STEPS, DDP_TIMED_SKIP = 12, 2
 DDP_LOSS_RTOL, DDP_GRAD_NORM_RTOL = 1e-5, 1e-4
 DDP_PARAM_ATOL, DDP_PARAM_RTOL, DDP_PARAM_SHARE = 1e-5, 1e-4, 0.999
 DDP_ALLREDUCE_REPS, DDP_TIMEOUT_S = 10, 300
+# Phase viewer: orbit views of phase kitti's checkpoints at the root
+# viewer's default 200x300, each equal bit for bit to render_image on its
+# rays: three poses of the flagship (3 K1a a render chunk), one of NGP
+# (1 a chunk); the frusta of the fixture's cameras drawn at 960x960.
+VIEWER_SIZE = (200, 300)
+VIEWER_ORBITS = ((0.0, 0.0), (0.6, 0.2), (-1.4, -0.35))
+# Phase public_bench: tools.run_public_benchmark's synthetic_nerf suite
+# (batch 16384, 8 steps a dispatch) on phase blender's layout as one scene.
+PUBLIC_STEPS = 200
+# Phase bench_probes: each probe once at full width, the fewest repetitions
+# that give a median.
+PROBE_REPS, PROBE_DISPATCHES, ABLATE_DISPATCHES = 3, 3, 2
+PROBE_EVAL_CHUNKS = (8192, 32768)
+PROBE_MFU_SWEEP = ((1024, 8), (1024, 32), (4096, 8))
+# Errors of the kernels at the shapes that the viewer, public_bench and
+# bench_probes paths launched them at (beyond phase kernels' shapes), by
+# kernel and shape; the kernels line takes them into its max_abs_err.
+PATH_SHAPE_ERRORS = {"K1": {}, "K2a": {}}
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
@@ -487,18 +549,6 @@ def mlp_forward_flops(model, n_rays):
     levels = [(model.prop_mlp, model.num_prop_samples)] * (model.num_levels - 1)
     levels.append((model.nerf_mlp, model.num_nerf_samples))
     return sum(linear_flops([mlp], n_rays * samples) for mlp, samples in levels)
-
-
-def nerfpp_forward_flops(model, n_rays):
-    """Multiply-add FLOPs of the fg and bg fields of every NeRF++ level on
-    that level's samples (level i runs on the sum of the first i + 1
-    cascade counts)."""
-    total, samples = 0, 0
-    for level, n in enumerate(model.cascade_samples):
-        samples += n
-        fields = getattr(model, f"level{level}")
-        total += linear_flops([fields.fg_field, fields.bg_field], n_rays * samples)
-    return total
 
 
 def ngp_points(model, n_rays):
@@ -552,10 +602,7 @@ def device_ms(fn, launches=50, reps=5):
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = probe_card(torch.device("cuda", 0))["nvidia_smi"]
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -772,8 +819,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda shape: 2.0 * torch.rand(shape, generator=gen, device="cuda")
     randn = lambda shape: torch.randn(shape, generator=gen, device="cuda")
-    cases = {f"{r}x{s}": rand((r, s)) for r, s in
-             [(4096, 64), (4096, 32), (16384, 32), (16384, 64), NGP_K1_SHAPE] + K1_EDGE_SHAPES}
+    cases = {f"{r}x{s}": rand((r, s)) for r, s in K1_CHECK_SHAPES}
     saturated = rand((256, 32))
     saturated[:, :4] = 10.0  # an opaque wall: later weights and gradients ~0
     cases["saturated_256x32"] = saturated
@@ -879,12 +925,6 @@ def _scene(config, split, seed):
         split, global_batch_size=config.batch_size, n_images=N_IMAGES,
         height=HEIGHT, width=WIDTH, seed=seed,
     )
-
-
-def _launches():
-    return {"K1a": volren_weights.FWD_LAUNCHES, "K1b": volren_weights.BWD_LAUNCHES,
-            "K2a": prefix_scan.LAUNCHES, "K2b": prefix_scan.BATCHED_LAUNCHES,
-            "P1": chunk_gather.TAKE_LAUNCHES, "P2": chunk_gather.ONEHOT_LAUNCHES}
 
 
 def _only(**counts):
@@ -1116,6 +1156,53 @@ def _record_scan_shapes(shapes):
         yield
     finally:
         prefix_scan.cumsum_cuda = launch
+
+
+@contextlib.contextmanager
+def _record_path_shapes(shapes):
+    """Record the shape of every K1a, K1b and K2a launch into `shapes`, a
+    dict of sets by kernel id (the wrappers are called as usual)."""
+    wrappers = {"K1a": (volren_weights, "weights_fwd_cuda"),
+                "K1b": (volren_weights, "weights_bwd_cuda"), "K2a": (prefix_scan, "cumsum_cuda")}
+    originals = {kid: getattr(module, name) for kid, (module, name) in wrappers.items()}
+
+    def recording(kid):
+        def launch(x, *rest):
+            shapes.setdefault(kid, set()).add(tuple(x.shape))
+            return originals[kid](x, *rest)
+        return launch
+
+    for kid, (module, name) in wrappers.items():
+        setattr(module, name, recording(kid))
+    try:
+        yield
+    finally:
+        for kid, (module, name) in wrappers.items():
+            setattr(module, name, originals[kid])
+
+
+def _hold_path_shapes(shapes):
+    """Each K1 and K2a shape in `shapes` (from `_record_path_shapes`) that
+    phase kernels did not check, held against the plain version on seeded
+    inputs (K1: tau in [0, 2), as phase kernels draws it). Call it after
+    the path's launches are read: its own launches are not the path's.
+    Returns the shapes and the errors, also kept in PATH_SHAPE_ERRORS."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errors = {"K1": {}, "K2a": {}}
+    for shape in sorted(shapes.get("K1a", set()) | shapes.get("K1b", set())):
+        if shape not in K1_CHECK_SHAPES:
+            tau = 2.0 * torch.rand(shape, generator=gen, device="cuda")
+            fwd, bwd = _check_pair(tau, torch.randn(shape, generator=gen, device="cuda"))
+            errors["K1"][f"{shape[0]}x{shape[1]}"] = {"fwd": fwd, "bwd": bwd}
+    for shape in sorted(shapes.get("K2a", set())):
+        if shape not in SCAN_SHAPES:
+            errors["K2a"][f"{shape[0]}x{shape[1]}"] = _check_scan(
+                torch.randn(shape, generator=gen, device="cuda"))
+    for kid in errors:
+        PATH_SHAPE_ERRORS[kid].update(errors[kid])
+    torch.cuda.empty_cache()
+    return {"launched_at": {kid: [list(s) for s in sorted(v)] for kid, v in shapes.items()},
+            "checked_here": errors}
 
 
 def _ngp_launches(steps):
@@ -1389,7 +1476,7 @@ def phase_nerfpp(root):
     _check_history(history, NERFPP_STEPS)
     step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
     steady = statistics.median(step_ms[1:])
-    step_tflop = 3 * nerfpp_forward_flops(model, config.batch_size) / 1e12
+    step_tflop = 3 * nerfpp_mfu.forward_flops(model, config.batch_size) / 1e12
     points = config.batch_size * 2 * sum(
         sum(mp["cascade_samples"][:i + 1]) for i in range(len(mp["cascade_samples"])))
 
@@ -1401,7 +1488,7 @@ def phase_nerfpp(root):
     # Float32 8x256 matmuls sum in another order on the card, and the
     # inverse-CDF resampling passes that on: 1e-3 on rgb in [0, 1],
     # relative 1e-3 on depths.
-    render = _render_check(config, model, nerfpp_forward_flops, lambda chunks: _only(),
+    render = _render_check(config, model, nerfpp_mfu.forward_flops, lambda chunks: _only(),
                            "nerfpp_render", 1e-3, batch=test.image_batch(0))
     render["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit(_without_image(render))
@@ -1611,7 +1698,7 @@ def phase_bf16_nerfpp(root):
         raise AssertionError(f"a kernel launched on the bf16 NeRF++ path: {counted}")
     _check_history(history, NERFPP_BF16_STEPS // NERFPP_FUSED)
     step_ms, steady = _steady_ms(config, history)
-    step_tflop = 3 * nerfpp_forward_flops(model, config.batch_size) / 1e12
+    step_tflop = 3 * nerfpp_mfu.forward_flops(model, config.batch_size) / 1e12
     train_set = datasets_lib.NerfppSceneDataset(scene, "train", config.batch_size)
     prof = phase_profile(config.replace(depth_scale=float(train_set.scene_scale)), model,
                          step_tflop, label="bf16_nerfpp_profile", steps=NERFPP_FUSED,
@@ -1619,7 +1706,7 @@ def phase_bf16_nerfpp(root):
     test = datasets_lib.NerfppSceneDataset(scene, "test", config.batch_size)
     # bf16 8x256 matmuls round in another order on the card, and the
     # inverse-CDF resampling passes that on: 2e-2 on rgb, relative 5e-2 on depths.
-    render = _render_check(config, model, nerfpp_forward_flops, lambda chunks: _only(),
+    render = _render_check(config, model, nerfpp_mfu.forward_flops, lambda chunks: _only(),
                            "bf16_nerfpp_render", 5e-2, batch=test.image_batch(0), rgb_atol=2e-2)
     emit({"phase": "bf16", "nerfpp": {
         "config": NERFPP_CONFIG, "compute_dtype": "bfloat16", "batch": config.batch_size,
@@ -2394,6 +2481,82 @@ def phase_eval_render(root, kitti_mip_eval):
     return launches
 
 
+def _same_arrays(got, want):
+    """Every key of two renderings equal bit for bit (NaN where NaN)."""
+    return set(got) == set(want) and all(
+        np.array_equal(got[k], want[k], equal_nan=np.issubdtype(got[k].dtype, np.floating))
+        for k in got)
+
+
+def phase_viewer(root):
+    """tools.viewer on phase kitti's checkpoints: orbit views rendered by
+    render_view on the card, each equal bit for bit to render_image on the
+    same rays, with its K1a launches; the frusta PNG of the fixture's
+    cameras through the CLI. The K1a shapes of the renders are held
+    against the plain version after them."""
+    height, width = VIEWER_SIZE
+    out = {"phase": "viewer", "size": [height, width]}
+    launches, shapes = {}, {}
+    for label, per_chunk, orbits in (("mip", 3, VIEWER_ORBITS), ("ngp", 1, VIEWER_ORBITS[:1])):
+        config = load_config(os.path.join(root, label, "config.json"))
+        dataset = build_dataset(config, "train")
+        config = config.replace(depth_scale=float(dataset.scene_scale))
+        model, step = step_lib.load_checkpoint(config)
+        model = model.to("cuda")
+        cam = viewer.orbit_around(dataset.camtoworlds)
+        expect = _only(K1a=per_chunk * math.ceil(height * width / config.render_chunk_size))
+        views, counted = [], _only()
+        for d_theta, d_phi in orbits:
+            cam.orbit(d_theta, d_phi)
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _record_path_shapes(shapes):
+                panel, got = viewer.render_view(config, dataset, model, cam, height, width,
+                                                "cuda")
+            ms = 1e3 * (time.perf_counter() - t0)
+            view_launches = _launches()
+            if view_launches != expect:
+                raise AssertionError(f"viewer {label}: launches {view_launches}, expected {expect}")
+            counted = {k: counted[k] + view_launches[k] for k in KERNEL_IDS}
+            want = step_lib.render_image(model, viewer.view_batch(dataset, cam, height, width),
+                                         config.render_chunk_size, "cuda",
+                                         config.ngp_eval_renderer)
+            depth = want["distance_mean"] / config.depth_scale
+            if not _same_arrays(got, want) or not np.array_equal(
+                    panel, vis_lib.side_by_side(want["rgb"], vis_lib.visualize_depth(depth))):
+                raise AssertionError(f"viewer {label}: render_view differs from render_image")
+            if got["rgb"].shape != (height, width, 3) or not np.isfinite(got["rgb"]).all():
+                raise AssertionError(f"viewer {label}: rgb {got['rgb'].shape}, not finite")
+            views.append({"theta": cam.theta, "phi": cam.phi, "radius": cam.radius, "ms": ms,
+                          "mean_rgb": float(np.mean(got["rgb"])),
+                          "mean_acc": float(np.mean(got["acc"]))})
+        out[label] = {"checkpoint_step": step, "views": views,
+                      "median_ms_per_view": statistics.median(v["ms"] for v in views),
+                      "launches_per_view": expect, "launches": counted}
+        launches[f"viewer_{label}"] = counted
+        del model
+        torch.cuda.empty_cache()
+
+    frusta_json = os.path.join(root, "frusta.json")
+    frusta_png = os.path.join(root, "frusta.png")
+    cams = preprocess.export_camera_frusta_json(os.path.join(root, "dtu_format", "sparse", "0"),
+                                                frusta_json)
+    t0 = time.perf_counter()
+    _quiet(viewer.main, ["--frusta", frusta_json, "--frusta-out", frusta_png])
+    frusta_ms = 1e3 * (time.perf_counter() - t0)
+    image = png.read_png(frusta_png)
+    blue = int(np.all(image == [0, 0, 255], axis=-1).sum())
+    red = int(np.all(image == [255, 0, 0], axis=-1).sum())
+    if image.shape != (vis_lib.FRUSTA_PX, vis_lib.FRUSTA_PX, 3) or not blue or not red:
+        raise AssertionError(f"frusta PNG {image.shape}, {blue} blue and {red} red pixels")
+    out["frusta"] = {"cameras": cams, "shape": list(image.shape), "blue_px": blue, "red_px": red,
+                     "ms": frusta_ms}
+    out["path_shapes"] = _hold_path_shapes(shapes)
+    emit(out)
+    return launches
+
+
 def lpips_flops(h, w):
     """Multiply-adds x 2 of the 13 VGG16 convolutions on one image."""
     flops, cin = 0, 3
@@ -2505,87 +2668,246 @@ def phase_gate():
     return launches
 
 
-def phase_blender():
+def phase_blender(root):
     """configs/blender_ngp.json at full width on a Synthetic-NeRF-shaped
-    layout: write, load, train past the occupancy warmup, evaluate the test
-    views; launches per step and per render chunk asserted."""
-    with tempfile.TemporaryDirectory() as root:
-        scene = os.path.join(root, "blender")
-        t0 = time.perf_counter()
-        _quiet(make_blender_fixture.main, scene, BLENDER_TRAIN, BLENDER_TEST, BLENDER_SIZE)
-        write_seconds = time.perf_counter() - t0
-        config = load_config(BLENDER_CONFIG, [f"scene_dir={scene}", "print_every=1",
-                                              f"exp_dir={os.path.join(root, 'exp')}"])
-        mp, fp = config.model_params, config.model_params["field_params"]
-        expected = (config.dataset, mp["scale"], mp["max_samples"], mp["n_candidates"],
-                    mp.get("sample_budget", 0), tuple(mp["bg_intensity_range"]), fp["n_levels"],
-                    fp["n_features"], fp["log2_table_size"], fp["hidden_width"],
-                    config.batch_size, config.occupancy_warmup_steps, config.opacity_loss_mult)
-        if expected != ("blender", 0.5, 128, 512, 0, (1.0, 1.0), NGP_LEVELS, 2, 19, 64, 8192,
-                        256, 1e-3):
-            raise AssertionError(f"{BLENDER_CONFIG} is no longer the full-width NGP shape: "
-                                 f"{expected}")
-        t0 = time.perf_counter()
-        dataset = build_dataset(config, "train")
-        load_seconds = time.perf_counter() - t0
-        if (dataset.n_images, dataset.height, dataset.width) != (
-                BLENDER_TRAIN, BLENDER_SIZE, BLENDER_SIZE):
-            raise AssertionError(f"loaded {dataset.n_images} views of "
-                                 f"{dataset.height}x{dataset.width}")
-        scan_shapes = set()
-        model, history, launches, seconds, peak = _train_phase(config, dataset, scan_shapes,
-                                                               max_steps=BLENDER_STEPS)
-        if launches != _ngp_launches(BLENDER_STEPS):
-            raise AssertionError(f"blender: launches {launches}, expected "
-                                 f"{_ngp_launches(BLENDER_STEPS)}")
-        # No sample budget: K2a scans every slot of the batch, a shape the
-        # kernel is held at in phase kernels.
-        scan_path = (ngp_points(model, config.batch_size), SCAN_PATH[1])
-        if scan_shapes != {scan_path} or scan_path not in SCAN_SHAPES:
-            raise AssertionError(f"blender: K2a ran at {scan_shapes}, expected only {scan_path}")
-        _check_history(history, BLENDER_STEPS)
-        step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
-        refresh = set(range(0, BLENDER_STEPS, config.occupancy_update_every))
-        plain = [ms for i, ms in enumerate(step_ms) if i > 0 and i not in refresh]
-        warm = [ms for i, ms in enumerate(step_ms)
-                if i >= config.occupancy_warmup_steps and i not in refresh]
-        steady = statistics.median(plain)
-        del dataset
-        _reset_launches()
-        t0 = time.perf_counter()
-        mean, per_image = evaluate(config, model, device="cuda", log_fn=lambda line: None)
-        eval_seconds = time.perf_counter() - t0
-        chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
-        eval_launches = _launches()
-        if eval_launches != _only(K1a=chunks):
-            raise AssertionError(f"blender eval: launches {eval_launches}, expected {chunks} K1a")
-        if len(per_image) != BLENDER_TEST or not all(
-                math.isfinite(mean[k]) for k in ("psnr", "ssim")):
-            raise AssertionError(f"blender eval: {len(per_image)} views, {mean}")
-        emit({"phase": "blender", "config": BLENDER_CONFIG,
-              "scene": f"Synthetic-NeRF layout, {BLENDER_TRAIN} train and {BLENDER_TEST} test "
-                       f"views of {BLENDER_SIZE}x{BLENDER_SIZE} RGBA, 8 analytic spheres",
-              "cuts": "none of views or resolution; 300 of the config's 30,000 steps (its LR "
-                      "schedule kept), past occupancy_warmup_steps 256",
-              "write_seconds": write_seconds, "load_seconds": load_seconds,
-              "steps": BLENDER_STEPS, "train_seconds": seconds, "batch": config.batch_size,
-              "field_points_per_step": ngp_points(model, config.batch_size),
-              "step_ms": step_ms, "median_step_ms_without_refresh": steady,
-              "median_step_ms_after_warmup": statistics.median(warm),
-              "rays_per_sec": 1e3 * config.batch_size / steady,
-              "rm_s": history[-1]["rm_s"], "vr_s": history[-1]["vr_s"],
-              "train_psnr_last": history[-1]["psnr"],
-              "occupied_share": _occupied_share(model),
-              "max_memory_allocated_bytes": peak, "launches": launches,
-              "k2a_shapes": sorted(scan_shapes),
-              "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
-              "eval": {"views": len(per_image), "seconds": eval_seconds,
-                       "launches": eval_launches, "psnr": mean["psnr"], "ssim": mean["ssim"],
-                       "per_image_psnr": [m["psnr"] for m in per_image]},
-              "verdict": "none: no reference number exists for this scene"})
+    layout written to `root`/blender (phase public_bench trains on it too):
+    write, load, train past the occupancy warmup, evaluate the test views;
+    launches per step and per render chunk asserted."""
+    scene = os.path.join(root, "blender")
+    t0 = time.perf_counter()
+    _quiet(make_blender_fixture.main, scene, BLENDER_TRAIN, BLENDER_TEST, BLENDER_SIZE)
+    write_seconds = time.perf_counter() - t0
+    config = load_config(BLENDER_CONFIG, [f"scene_dir={scene}", "print_every=1",
+                                          f"exp_dir={os.path.join(root, 'exp')}"])
+    mp, fp = config.model_params, config.model_params["field_params"]
+    expected = (config.dataset, mp["scale"], mp["max_samples"], mp["n_candidates"],
+                mp.get("sample_budget", 0), tuple(mp["bg_intensity_range"]), fp["n_levels"],
+                fp["n_features"], fp["log2_table_size"], fp["hidden_width"],
+                config.batch_size, config.occupancy_warmup_steps, config.opacity_loss_mult)
+    if expected != ("blender", 0.5, 128, 512, 0, (1.0, 1.0), NGP_LEVELS, 2, 19, 64, 8192,
+                    256, 1e-3):
+        raise AssertionError(f"{BLENDER_CONFIG} is no longer the full-width NGP shape: "
+                             f"{expected}")
+    t0 = time.perf_counter()
+    dataset = build_dataset(config, "train")
+    load_seconds = time.perf_counter() - t0
+    if (dataset.n_images, dataset.height, dataset.width) != (
+            BLENDER_TRAIN, BLENDER_SIZE, BLENDER_SIZE):
+        raise AssertionError(f"loaded {dataset.n_images} views of "
+                             f"{dataset.height}x{dataset.width}")
+    scan_shapes = set()
+    model, history, launches, seconds, peak = _train_phase(config, dataset, scan_shapes,
+                                                           max_steps=BLENDER_STEPS)
+    if launches != _ngp_launches(BLENDER_STEPS):
+        raise AssertionError(f"blender: launches {launches}, expected "
+                             f"{_ngp_launches(BLENDER_STEPS)}")
+    # No sample budget: K2a scans every slot of the batch, a shape the
+    # kernel is held at in phase kernels.
+    scan_path = (ngp_points(model, config.batch_size), SCAN_PATH[1])
+    if scan_shapes != {scan_path} or scan_path not in SCAN_SHAPES:
+        raise AssertionError(f"blender: K2a ran at {scan_shapes}, expected only {scan_path}")
+    _check_history(history, BLENDER_STEPS)
+    step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
+    refresh = set(range(0, BLENDER_STEPS, config.occupancy_update_every))
+    plain = [ms for i, ms in enumerate(step_ms) if i > 0 and i not in refresh]
+    warm = [ms for i, ms in enumerate(step_ms)
+            if i >= config.occupancy_warmup_steps and i not in refresh]
+    steady = statistics.median(plain)
+    del dataset
+    _reset_launches()
+    t0 = time.perf_counter()
+    mean, per_image = evaluate(config, model, device="cuda", log_fn=lambda line: None)
+    eval_seconds = time.perf_counter() - t0
+    chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
+    eval_launches = _launches()
+    if eval_launches != _only(K1a=chunks):
+        raise AssertionError(f"blender eval: launches {eval_launches}, expected {chunks} K1a")
+    if len(per_image) != BLENDER_TEST or not all(
+            math.isfinite(mean[k]) for k in ("psnr", "ssim")):
+        raise AssertionError(f"blender eval: {len(per_image)} views, {mean}")
+    emit({"phase": "blender", "config": BLENDER_CONFIG,
+          "scene": f"Synthetic-NeRF layout, {BLENDER_TRAIN} train and {BLENDER_TEST} test "
+                   f"views of {BLENDER_SIZE}x{BLENDER_SIZE} RGBA, 8 analytic spheres",
+          "cuts": "none of views or resolution; 300 of the config's 30,000 steps (its LR "
+                  "schedule kept), past occupancy_warmup_steps 256",
+          "write_seconds": write_seconds, "load_seconds": load_seconds,
+          "steps": BLENDER_STEPS, "train_seconds": seconds, "batch": config.batch_size,
+          "field_points_per_step": ngp_points(model, config.batch_size),
+          "step_ms": step_ms, "median_step_ms_without_refresh": steady,
+          "median_step_ms_after_warmup": statistics.median(warm),
+          "rays_per_sec": 1e3 * config.batch_size / steady,
+          "rm_s": history[-1]["rm_s"], "vr_s": history[-1]["vr_s"],
+          "train_psnr_last": history[-1]["psnr"],
+          "occupied_share": _occupied_share(model),
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "k2a_shapes": sorted(scan_shapes),
+          "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
+          "eval": {"views": len(per_image), "seconds": eval_seconds,
+                   "launches": eval_launches, "psnr": mean["psnr"], "ssim": mean["ssim"],
+                   "per_image_psnr": [m["psnr"] for m in per_image]},
+          "verdict": "none: no reference number exists for this scene"})
     del model
     torch.cuda.empty_cache()
     return {"blender": launches, "blender_eval": eval_launches}
+
+
+def phase_public_bench(root):
+    """tools.run_public_benchmark's synthetic_nerf suite through its main on
+    the Blender layout phase blender wrote, as a one-scene suite: NGP in
+    bf16 at the suite's batch 16384, 8 steps a dispatch, for PUBLIC_STEPS
+    steps, then its test views; the summary's metrics, ms a step from the
+    loop's log lines and the launches (1 K1a, 1 K1b and 16 K2a a step, 1
+    K1a a render chunk); the kernels' shapes on that run held against the
+    plain version after it."""
+    summary_path = os.path.join(root, "public_bench.json")
+    argv = ["synthetic_nerf", f"root={root}", "scenes=blender", f"steps={PUBLIC_STEPS}",
+            f"out={summary_path}", f"exp_dir={os.path.join(root, 'public_exp')}",
+            "print_every=8"]
+    config = run_public_benchmark.scene_config(run_public_benchmark.SUITES["synthetic_nerf"],
+                                               root, "blender", PUBLIC_STEPS, argv[5:])
+    if (config.batch_size, config.steps_per_dispatch, config.compute_dtype) != (
+            16384, 8, "bfloat16"):
+        raise AssertionError(f"the synthetic_nerf suite's config changed: {config}")
+    shapes = {}
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _record_path_shapes(shapes):
+        summary, printed = _quiet(run_public_benchmark.main, argv)
+    seconds = time.perf_counter() - t0
+    counted = _launches()
+    chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
+    expect = _only(K1a=PUBLIC_STEPS + chunks, K1b=PUBLIC_STEPS, K2a=NGP_LEVELS * PUBLIC_STEPS)
+    if counted != expect:
+        raise AssertionError(f"public_bench: launches {counted}, expected {expect}")
+    scan_path = (config.batch_size * config.model_params["max_samples"], SCAN_PATH[1])
+    if shapes["K2a"] != {scan_path} or scan_path not in SCAN_SHAPES:
+        raise AssertionError(f"public_bench: K2a ran at {shapes['K2a']}, expected only "
+                             f"{scan_path}")
+    path_shapes = _hold_path_shapes(shapes)
+    logged = [e for e in (json.loads(line) for line in printed.splitlines()
+                          if line.startswith("{")) if "step" in e and "rays_per_sec" in e]
+    if len(logged) != PUBLIC_STEPS // 8:
+        raise AssertionError(f"public_bench: {len(logged)} logged dispatches")
+    step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in logged]
+    metrics = summary["scenes"]["blender"]
+    if summary["mean"] != metrics or not all(math.isfinite(metrics[k]) for k in ("psnr", "ssim")):
+        raise AssertionError(f"public_bench summary {summary}")
+    with open(summary_path) as f:
+        if json.load(f) != summary:
+            raise AssertionError("public_bench: the summary file differs from main's result")
+    emit({"phase": "public_bench", "suite": "synthetic_nerf",
+          "scene": f"phase blender's layout as one scene ({BLENDER_TRAIN} train and "
+                   f"{BLENDER_TEST} test views of {BLENDER_SIZE}x{BLENDER_SIZE}); not the "
+                   "suite's 8 scenes, which are not in the repository",
+          "steps": PUBLIC_STEPS, "batch": config.batch_size,
+          "steps_per_dispatch": config.steps_per_dispatch, "seconds": seconds,
+          "step_ms_per_dispatch": step_ms,
+          "median_step_ms_after_first_dispatch": statistics.median(step_ms[1:]),
+          "rays_per_sec": 1e3 * config.batch_size / statistics.median(step_ms[1:]),
+          "summary": summary, "launches": counted, "path_shapes": path_shapes})
+    torch.cuda.empty_cache()
+    return {"public_bench": counted}
+
+
+def _probe_record(label, result, expect):
+    """A probe's dict emitted, once its launches (by kernel id) are `expect`."""
+    if result["launches"] != expect:
+        raise AssertionError(f"{label}: launches {result['launches']}, expected {expect}")
+    emit({"phase": "bench_probes", "probe": label, **result})
+    return result["launches"]
+
+
+def phase_bench_probes():
+    """Every bench probe once at full width: ngp_step (1 K1a, 1 K1b and 16
+    K2a a step), ngp_bwd (one K2a a call of the scan, the bf16 and factored
+    variants and the whole backward, none elsewhere), ngp_eval (K1a only on
+    the dense renderer, one a call), and the NeRF++ probes (no kernel). The
+    shapes that each NGP probe launched its kernels at are held against the
+    plain version after it runs."""
+    launches = {}
+
+    shapes = {}
+    t0 = time.perf_counter()
+    with _record_path_shapes(shapes):
+        result = ngp_step.run("cuda")
+    steps = result["steps"]
+    launches["bench_probes_ngp_step"] = _probe_record(
+        "ngp_step", dict(result, seconds_with_setup=time.perf_counter() - t0,
+                         path_shapes=_hold_path_shapes(shapes)),
+        _only(K1a=steps, K1b=steps, K2a=NGP_LEVELS * steps))
+    torch.cuda.empty_cache()
+
+    shapes = {}
+    t0 = time.perf_counter()
+    with _record_path_shapes(shapes):
+        result = ngp_bwd.run("cuda", reps=PROBE_REPS)
+    calls = PROBE_REPS + 1
+    groups = result["launches"]
+    k2a = {"scan", "bwd_bf16", "bwd_factored", "full_bwd"}
+    wrong = {n: g for n, g in groups.items()
+             if g != {"calls": calls, "launches": calls if n in k2a else 0}}
+    if wrong:
+        raise AssertionError(f"ngp_bwd: K2a launches {wrong}")
+    counted = _only(K2a=calls * len(k2a))
+    seconds = time.perf_counter() - t0
+    launches["bench_probes_ngp_bwd"] = _probe_record(
+        "ngp_bwd", dict(result, launches=counted, launches_by_group=groups,
+                        seconds_with_setup=seconds, path_shapes=_hold_path_shapes(shapes)),
+        counted)
+    torch.cuda.empty_cache()
+
+    shapes = {}
+    t0 = time.perf_counter()
+    with _record_path_shapes(shapes):
+        result = ngp_eval.run("cuda", chunks=PROBE_EVAL_CHUNKS, reps=PROBE_REPS)
+    counted = _only()
+    for chunk in PROBE_EVAL_CHUNKS:
+        got = result[f"chunk_{chunk}"]["launches"]
+        want = {"iterative": {"calls": calls, "launches": 0},
+                "train": {"calls": calls, "launches": calls}}
+        if got != want:
+            raise AssertionError(f"ngp_eval chunk {chunk}: K1a {got}, expected {want}")
+        counted["K1a"] += calls
+    seconds = time.perf_counter() - t0
+    launches["bench_probes_ngp_eval"] = _probe_record(
+        "ngp_eval", dict(result, launches=counted, seconds_with_setup=seconds,
+                         path_shapes=_hold_path_shapes(shapes)), counted)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    result = nerfpp_mfu.run("cuda", sweep=PROBE_MFU_SWEEP, n_meas=PROBE_DISPATCHES)
+    counted = _only()
+    for r in result["sweep"]:
+        counted = {k: counted[k] + r["launches"][k] for k in KERNEL_IDS}
+    launches["bench_probes_nerfpp_mfu"] = _probe_record(
+        "nerfpp_mfu", dict(result, launches=counted,
+                           seconds_with_setup=time.perf_counter() - t0), _only())
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    result = nerfpp_ablate.run("cuda", n_meas=ABLATE_DISPATCHES)
+    if [r["tag"] for r in result["ablations"]] != [t for t, _, _ in nerfpp_ablate.ABLATIONS]:
+        raise AssertionError(f"nerfpp_ablate ran {result['ablations']}")
+    counted = _only()
+    for r in result["ablations"]:
+        counted = {k: counted[k] + r["launches"][k] for k in KERNEL_IDS}
+    launches["bench_probes_nerfpp_ablate"] = _probe_record(
+        "nerfpp_ablate", dict(result, launches=counted,
+                              seconds_with_setup=time.perf_counter() - t0), _only())
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        t0 = time.perf_counter()
+        result = profile_step.run("cuda", trace_dir=trace_dir)
+        trace_bytes = os.path.getsize(result["trace"])
+    if result["ranked_by"] != "self_device_time_total" or result["total_ms"] <= 0:
+        raise AssertionError(f"profile_step recorded no device time: {result['total_ms']}")
+    launches["bench_probes_profile_step"] = _probe_record(
+        "profile_step", dict(result, trace_bytes=trace_bytes,
+                             seconds_with_setup=time.perf_counter() - t0), _only())
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_cameras(root):
@@ -3468,8 +3790,11 @@ def ddp_worker(part, workdir):
 
 
 def summary(k, launches):
-    errors, timing = k["errors"], k["timing"]
-    scan_errors, scan_timing = k["scan_errors"], k["scan_timing"]
+    timing, scan_timing = k["timing"], k["scan_timing"]
+    # Phase kernels' shapes and those the new paths added.
+    errors = dict(k["errors"], **{s: (e["fwd"], e["bwd"])
+                                  for s, e in PATH_SHAPE_ERRORS["K1"].items()})
+    scan_errors = dict(k["scan_errors"], **PATH_SHAPE_ERRORS["K2a"])
 
     def per_step(key, shapes):
         return sum(timing[f"{r}x{s}"][key] for r, s in shapes)
@@ -3485,9 +3810,11 @@ def summary(k, launches):
                      "blender_eval")
         return sum(counts[kernel] for p, counts in launches.items()
                    if p in main_path or p.startswith(("cameras_", "depth_losses_",
-                                                      "ngp_layouts_", "mip_options_", "ddp_")))
+                                                      "ngp_layouts_", "mip_options_", "ddp_",
+                                                      "viewer_", "public_bench",
+                                                      "bench_probes_")))
 
-    k1 = {"route": "cuda", "source": SOURCE, "library_ms": None,
+    k1 = {"route": "cuda", "source": SOURCE, "library_ms": None, "checked_shapes": sorted(errors),
           "work": "one mip train step: 2 x [4096, 64] + [4096, 32] float32",
           "launches_note": "mip and NGP train runs on the synthetic scene and the KITTI fixture, "
                            "float32 and bf16 (the 16k remat run launches K1a twice a level), "
@@ -3502,7 +3829,10 @@ def summary(k, launches):
                            "and NGP as ranks of a process group (phase ddp: world 1 under "
                            "NCCL, world 2 under gloo on one card, the flagship plain and "
                            "under remat=dots; counts per rank, each rank "
-                           "launching a step's kernels on its own rows)"}
+                           "launching a step's kernels on its own rows), the viewer's orbit "
+                           "renders of the mip and NGP checkpoints (phase viewer), the public-"
+                           "dataset runner's NGP training and eval (phase public_bench), and the "
+                           "NGP bench probes' steps and renders (phase bench_probes)"}
     path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     oct_path = f"{OCT_SCAN_PATH[0]}x{OCT_SCAN_PATH[1]}"
     kernels = [
@@ -3537,11 +3867,14 @@ def summary(k, launches):
                           "Blender layout (phase blender), NGP under its own loss and rawnerf's "
                           "(phase mip_options), the oct layout's one scan a step "
                           "and osplit's HDR field with extrinsics refinement (phase "
-                          "ngp_layouts), and NGP as a rank of a process group (phase ddp: "
-                          "16 a step on each rank)",
+                          "ngp_layouts), NGP as a rank of a process group (phase ddp: "
+                          "16 a step on each rank), the public-dataset runner's training "
+                          "(phase public_bench), and the NGP bench step and the oct "
+                          "gradient's stages (phase bench_probes)",
          "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
          "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                     for e in k["bf16_errors"].values()),
+         "checked_shapes": sorted(scan_errors),
          "max_abs_err_all_shapes": max(e["kernel_vs_plain_abs"] for e in scan_errors.values()),
          "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"] for e in scan_errors.values()),
          "run_to_run_max_abs": max(e["run_to_run_abs"] for e in scan_errors.values()),
@@ -3620,9 +3953,13 @@ def main():
         launches.update(phase_depth_losses(root))
         launches.update(phase_ngp_layouts(root))
         launches.update(phase_mip_options(root))
+        launches.update(phase_viewer(root))
     launches.update(phase_lpips())
     launches.update(phase_gate())
-    launches.update(phase_blender())
+    with tempfile.TemporaryDirectory() as root:
+        launches.update(phase_blender(root))
+        launches.update(phase_public_bench(root))
+    launches.update(phase_bench_probes())
     launches.update(phase_ddp(smi))
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

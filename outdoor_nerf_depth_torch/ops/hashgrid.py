@@ -363,9 +363,18 @@ def _segment_sums(sorted_idx: torch.Tensor, csum: torch.Tensor, n_rows: int) -> 
     values in that order: with b_r = #(idx <= r), row r's sum is
     csum[b_r - 1] - csum[b_{r-1} - 1]. The reference finds b_r with two
     sentinel sorts; `searchsorted` on the sorted ids gives the same integers."""
+    return _sums_at_ends(csum, _segment_ends(sorted_idx, n_rows))
+
+
+def _segment_ends(sorted_idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """b_r = #(idx <= r) for each row r < n_rows, from the sorted row ids."""
     rows = torch.arange(n_rows, device=sorted_idx.device, dtype=sorted_idx.dtype)
-    b = torch.searchsorted(sorted_idx, rows, right=True)
-    ge = torch.where((b > 0)[:, None], csum[torch.clamp(b - 1, min=0)], 0.0)
+    return torch.searchsorted(sorted_idx, rows, right=True)
+
+
+def _sums_at_ends(csum: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Row sums: the prefix sums at the segment ends, differenced."""
+    ge = torch.where((ends > 0)[:, None], csum[torch.clamp(ends - 1, min=0)], 0.0)
     return ge - torch.cat([ge.new_zeros((1, csum.shape[-1])), ge[:-1]], dim=0)
 
 
@@ -399,6 +408,32 @@ def _fold(packed: torch.Tensor, offsets, table_size: int, n_feats: int) -> torch
     for lane, o in enumerate(offsets[1:], start=1):
         acc = acc + torch.roll(p[:, lane * n_feats:(lane + 1) * n_feats], o, dims=0)
     return acc
+
+
+def _fold_oct_levels(seg: torch.Tensor, resolutions, table_size: int,
+                     n_feats: int) -> torch.Tensor:
+    """The oct table's row sums [sum of level rows, 8F], folded back onto
+    the canonical [L, T, F] table level by level."""
+    level_rows = _oct_level_rows(resolutions, table_size)
+    return torch.stack([_fold(p, _oct_offsets(res, table_size), table_size, n_feats)
+                        for p, res in zip(torch.split(seg, level_rows), resolutions)])
+
+
+def _oct_vals(w_all: torch.Tensor, g_lf: torch.Tensor) -> torch.Tensor:
+    """[m, 8F] products of the corner weights and the cotangent, one row a
+    point and level (m = points x L)."""
+    return (w_all[..., None] * g_lf[..., None, :]).reshape(-1, 8 * g_lf.shape[-1])
+
+
+def _oct_table_grad(idx: torch.Tensor, w_all: torch.Tensor, g_lf: torch.Tensor, resolutions,
+                    table_size: int) -> torch.Tensor:
+    """The oct layout's table gradient [L, T, F]: the values sorted stably
+    by physical row, prefix-summed in f32 (K2a on the GPU), differenced at
+    the segment ends and folded back onto the canonical table."""
+    sorted_idx, order = torch.sort(idx.reshape(-1), stable=True)
+    seg = _segment_sums(sorted_idx, prefix_scan.cumsum(_oct_vals(w_all, g_lf)[order]),
+                        sum(_oct_level_rows(resolutions, table_size)))
+    return _fold_oct_levels(seg, resolutions, table_size, g_lf.shape[-1])
 
 
 def _trilinear_dx(x: torch.Tensor, resolutions, s: torch.Tensor) -> torch.Tensor:
@@ -483,17 +518,12 @@ class OctEncode(torch.autograd.Function):
         resolutions, table_size = ctx.resolutions, ctx.table_size
         n_levels, _, n_feats = ctx.table_shape
         g_lf = _cotangent(g, n_levels, n_feats)
-        level_rows = _oct_level_rows(resolutions, table_size)
-        vals = (w_all[..., None] * g_lf[..., None, :]).reshape(-1, 8 * n_feats)
-        sorted_idx, order = torch.sort(idx.reshape(-1), stable=True)
-        seg = _segment_sums(sorted_idx, prefix_scan.cumsum(vals[order]), sum(level_rows))
-        canon = [_fold(p, _oct_offsets(res, table_size), table_size, n_feats)
-                 for p, res in zip(torch.split(seg, level_rows), resolutions)]
+        canon = _oct_table_grad(idx, w_all, g_lf, resolutions, table_size)
         dx = None
         if ctx.needs_input_grad[0]:
             s = _corner_sums(g_lf, rows.reshape(rows.shape[:-1] + (8, n_feats)))
             dx = _trilinear_dx(x, resolutions, s)
-        return dx, torch.stack(canon), None, None
+        return dx, canon, None, None
 
 
 class QuadEncode(torch.autograd.Function):

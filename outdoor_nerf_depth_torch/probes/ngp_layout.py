@@ -7,10 +7,11 @@ oct, quad, corner) it times, on the device it runs on:
   backward through the layout's sorted table gradient, on 8192 x 64 points
   at L 16, F 2, T 2^19 (resolutions 16 to 2048), with the K2a launches of
   the forward + backward;
-- `bench_full_step`: the probe's NGP train step: scale 0.5, max_samples 64,
-  n_candidates 256, bfloat16, batch 8192, on the synthetic scene of 8 views
-  of 94x310, after a warmup occupancy refresh of its 128^3 grid and three
-  untimed steps (`--log2t` sizes its table too, `--grid-res` the grid).
+- `bench_full_step`: the NGP bench step (`workloads.ngp_bench_config`:
+  scale 0.5, max_samples 64, n_candidates 256, bfloat16, batch 8192) on the
+  synthetic scene of 8 views of 94x310, after a warmup occupancy refresh of
+  its 128^3 grid and three untimed steps (`--log2t` sizes its table too,
+  `--grid-res` the grid).
 
 Seconds are medians of `timeit` (see TIMING_METHOD); the step's rays/s is
 the batch over its median.
@@ -28,12 +29,8 @@ import sys
 
 import torch
 
-from outdoor_nerf_depth_torch.data import datasets as datasets_lib
-from outdoor_nerf_depth_torch.data import rays as rays_lib
 from outdoor_nerf_depth_torch.ops import hashgrid, prefix_scan
-from outdoor_nerf_depth_torch.probes import TIMING_METHOD, timed_launches, timeit
-from outdoor_nerf_depth_torch.train import step as step_lib
-from outdoor_nerf_depth_torch.train.config import Config
+from outdoor_nerf_depth_torch.probes import TIMING_METHOD, timed_launches, timeit, workloads
 from outdoor_nerf_depth_torch.train.loop import resolve_device
 
 LAYOUTS = ("osplit", "oct", "quad", "corner")
@@ -75,34 +72,17 @@ def bench_layout(layout: str, device, samples: int = SAMPLES, log2_table_size: i
 def bench_full_step(layout: str, device, batch: int = BATCH, reps: int = 10,
                     log2_table_size: int = 19, grid_resolution: int = 128,
                     seed: int = 0) -> dict:
-    """step_s and rays_per_sec of the probe's NGP train step under `layout`
-    (the field's default widths, its table at 2^log2_table_size rows, the
-    occupancy grid at grid_resolution^3 cells)."""
-    config = Config(
-        model="ngp",
-        model_params=dict(scale=0.5, max_samples=64, n_candidates=256, hash_layout=layout,
-                          compute_dtype="bfloat16", grid_resolution=grid_resolution,
-                          field_params={"log2_table_size": log2_table_size}),
-        compute_dtype="bfloat16", batch_size=batch, lambda_depth=0.1, depth_loss_type="mse",
-        interlevel_loss_mult=0.0, distortion_loss_mult=0.0, opacity_loss_mult=1e-3,
-        lr_delay_steps=0,
-    )
-    dataset = datasets_lib.SyntheticDataset("train", global_batch_size=batch, n_images=8,
-                                            height=94, width=310, seed=seed)
-    model = step_lib.build_model(config, generator=torch.Generator().manual_seed(seed)).to(device)
-    optimizer, lr_fn = step_lib.make_optimizer(config, model)
-    train_step = step_lib.make_train_step(config, model, optimizer, lr_fn,
-                                          cameras=dataset.cameras_on(device),
-                                          camtype=dataset.camtype)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    update = step_lib.make_occupancy_update_fn(config, model)
-    model.occupancy.copy_(update(model.occupancy, gen, True))
-    batches = [rays_lib.to_device(dataset.sample_batch(), device) for _ in range(4)]
-    calls = iter(range(10**9))
+    """step_s and rays_per_sec of the NGP bench step (`workloads.ngp_bench_config`)
+    under `layout` (the field's default widths, its table at
+    2^log2_table_size rows, the occupancy grid at grid_resolution^3 cells)."""
+    config = workloads.ngp_bench_config(batch, hash_layout=layout,
+                                        grid_resolution=grid_resolution,
+                                        field_params={"log2_table_size": log2_table_size})
+    trainer = workloads.bench_trainer(config, device, seed=seed)
+    trainer.refresh(warmup=True)
 
     def one_step():
-        i = next(calls)
-        return float(train_step(batches[i % 4], i, 0.5, gen)["loss"])
+        return float(trainer.step()["loss"])
 
     for _ in range(2):
         one_step()

@@ -72,7 +72,8 @@ def load_weights(path: Optional[str] = None,
             f"LPIPS weights file not found at {path!r}. LPIPS needs the "
             "VGG16+calibration weights, which are not bundled. Export them "
             "on a machine with torchvision+lpips installed:\n"
-            "  python tools/export_lpips_weights.py weights/lpips_vgg.npz\n"
+            "  python -m outdoor_nerf_depth_torch.tools.export_lpips_weights "
+            "weights/lpips_vgg.npz\n"
             "or point ONDT_LPIPS_WEIGHTS at an existing file. "
             "(Refusing to silently skip LPIPS.)"
         )
@@ -82,7 +83,8 @@ def load_weights(path: Optional[str] = None,
         raise ValueError(
             f"LPIPS weights file {path!r} lacks the exporter provenance "
             f"stamp (found {provenance!r}, need {EXPORT_PROVENANCE!r}). "
-            "Only weights written by tools/export_lpips_weights.py measure "
+            "Only weights written by the exporter "
+            "(outdoor_nerf_depth_torch.tools.export_lpips_weights) measure "
             "perceptual distance; refusing to report LPIPS from anything "
             "else (e.g. a random-weights test fixture)."
         )

@@ -264,3 +264,46 @@ def test_the_collectives_module_imports_torch_only():
                 roots.add(node.module.split(".")[0])
     assert roots - set(sys.stdlib_module_names) - {"__future__"} == {"torch",
                                                                       "outdoor_nerf_depth_torch"}
+
+
+@pytest.mark.parametrize("module", [
+    "outdoor_nerf_depth_torch.utils.vis",
+    "outdoor_nerf_depth_torch.tools.viewer",
+    "outdoor_nerf_depth_torch.tools.export_lpips_weights",
+    "outdoor_nerf_depth_torch.tools.run_public_benchmark",
+    "outdoor_nerf_depth_torch.train.lpips",
+    "outdoor_nerf_depth_torch.ops.hashgrid",
+    "outdoor_nerf_depth_torch.probes",
+    "outdoor_nerf_depth_torch.probes.workloads",
+    "outdoor_nerf_depth_torch.probes.ngp_layout",
+    "outdoor_nerf_depth_torch.probes.ngp_step",
+    "outdoor_nerf_depth_torch.probes.ngp_bwd",
+    "outdoor_nerf_depth_torch.probes.ngp_eval",
+    "outdoor_nerf_depth_torch.probes.nerfpp_mfu",
+    "outdoor_nerf_depth_torch.probes.nerfpp_ablate",
+    "outdoor_nerf_depth_torch.probes.profile_step",
+])
+def test_the_viewer_exporter_runner_and_bench_probe_modules_are_checked(module):
+    """The modules of the orbit viewer and frusta plot, the LPIPS exporter,
+    the public-dataset runner and the bench probes are among those the tests
+    above import with the reference stack and matplotlib blocked, and scan
+    for the reference's names."""
+    assert module in _port_modules()
+    path = REPO / (module.replace(".", "/") + ".py")
+    if not path.is_file():
+        path = REPO / module.replace(".", "/") / "__init__.py"
+    assert not BANNED.search(path.read_text())
+
+
+def test_the_exporter_and_viewer_import_their_libraries_only_when_run():
+    """torchvision, lpips and matplotlib are imported inside the functions
+    that need them, never at module level."""
+    for rel in ("tools/export_lpips_weights.py", "tools/viewer.py", "utils/vis.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                top.add(node.module.split(".")[0])
+        assert not top & {"torchvision", "lpips", "matplotlib"}, (rel, top)
