@@ -30,6 +30,7 @@ from torch import nn
 from outdoor_nerf_depth_torch.models.mlps import ConeFieldMLP
 from outdoor_nerf_depth_torch.ops import spaces, stepfuns, volren
 from outdoor_nerf_depth_torch.parallel import mesh
+from outdoor_nerf_depth_torch.utils import tracing
 
 
 class ProposalModel(nn.Module):
@@ -120,7 +121,8 @@ class ProposalModel(nn.Module):
         `ray_weights` and `ray_rgbs` of the first `vis_num_rays` rays (the
         proposal levels' colours are the final level's composited colour).
         `zero_glo=False` uses the GLO and exposure embeddings of the rays'
-        cameras.
+        cameras. Under a profiler each level marks its resampling
+        (`mip.resample`) and its MLP (`mip.mlp`; `utils/tracing.py`).
         """
         cam_idx = rays.cam_idx[..., 0].long()
         glo_vec = None
@@ -156,7 +158,8 @@ class ProposalModel(nn.Module):
 
             # With stop_level_grad no gradient reaches the resampled edges,
             # so resampling runs without building a graph.
-            with torch.set_grad_enabled(torch.is_grad_enabled() and not self.stop_level_grad):
+            with tracing.span("mip.resample"), torch.set_grad_enabled(
+                    torch.is_grad_enabled() and not self.stop_level_grad):
                 if level > 0 and (self.dilation_bias > 0 or self.dilation_multiplier > 0):
                     sdist, weights = stepfuns.max_dilate_weights(
                         sdist, weights, dilation, domain=(s_near, s_far), renormalize=True
@@ -191,8 +194,9 @@ class ProposalModel(nn.Module):
                 covs = torch.zeros_like(covs)
 
             mlp = self.prop_mlp if is_prop else self.nerf_mlp
-            field = mlp(means, covs, viewdirs=rays.viewdirs if self.use_viewdirs else None,
-                        glo_vec=None if is_prop else glo_vec, generator=generator)
+            with tracing.span("mip.mlp"):
+                field = mlp(means, covs, viewdirs=rays.viewdirs if self.use_viewdirs else None,
+                            glo_vec=None if is_prop else glo_vec, generator=generator)
             weights = volren.composite_weights(
                 field["density"], tdist, rays.directions,
                 opaque_background=self.opaque_background,

@@ -42,6 +42,7 @@ from outdoor_nerf_depth_torch.models.mlps import _dense
 from outdoor_nerf_depth_torch.ops import hashgrid, mathx, volren
 from outdoor_nerf_depth_torch.ops import occupancy as occ
 from outdoor_nerf_depth_torch.parallel import mesh
+from outdoor_nerf_depth_torch.utils import tracing
 
 
 class HashGridField(nn.Module):
@@ -233,79 +234,91 @@ class HashGridModel(nn.Module):
 
         `generator` jitters the candidates (None: deterministic); `occupancy`
         is the [cascades, R^3] density grid to march through (None: every
-        candidate is occupied).
+        candidate is occupied). Under a profiler the stages are marked
+        `ngp.march` (intersection, candidates, grid lookup, compaction plan),
+        `ngp.field` and `ngp.composite` (`utils/tracing.py`).
         """
         del train_frac, compute_extras
-        rays = self.refine_rays(rays)
-        exposure = rays.exposure_values
-        # March along unit directions, so t is metric distance.
-        t_near, t_far, hit = occ.intersect_aabb(
-            rays.origins, rays.viewdirs, self.e_max, near_min=self.near_distance
-        )
-        t_near = torch.maximum(t_near, rays.near[..., 0])
-        t_far = torch.maximum(torch.minimum(t_far, rays.far[..., 0]), t_near + 1e-4)
-        edges = occ.march_candidates(generator, t_near, t_far, self.n_candidates, self.exponential)
-        if occupancy is not None:
-            mids_all = 0.5 * (edges[..., :-1] + edges[..., 1:])
-            pts_all = rays.origins[..., None, :] + mids_all[..., None] * rays.viewdirs[..., None, :]
-            # min(threshold, mean density) keeps marching alive while the
-            # whole field is still dim.
-            thresh = torch.clamp(occ.mean_density(occupancy), max=self.density_threshold)
-            occupied = occ.lookup(occupancy, pts_all, self.scale, thresh)
-        else:
-            occupied = torch.ones(edges.shape[:-1] + (self.n_candidates,), dtype=torch.bool,
-                                  device=edges.device)
-        occupied = occupied & hit[..., None]
+        with tracing.span("ngp.march"):
+            rays = self.refine_rays(rays)
+            exposure = rays.exposure_values
+            # March along unit directions, so t is metric distance.
+            t_near, t_far, hit = occ.intersect_aabb(
+                rays.origins, rays.viewdirs, self.e_max, near_min=self.near_distance
+            )
+            t_near = torch.maximum(t_near, rays.near[..., 0])
+            t_far = torch.maximum(torch.minimum(t_far, rays.far[..., 0]), t_near + 1e-4)
+            edges = occ.march_candidates(generator, t_near, t_far, self.n_candidates,
+                                         self.exponential)
+            if occupancy is not None:
+                mids_all = 0.5 * (edges[..., :-1] + edges[..., 1:])
+                pts_all = (rays.origins[..., None, :]
+                           + mids_all[..., None] * rays.viewdirs[..., None, :])
+                # min(threshold, mean density) keeps marching alive while the
+                # whole field is still dim.
+                thresh = torch.clamp(occ.mean_density(occupancy), max=self.density_threshold)
+                occupied = occ.lookup(occupancy, pts_all, self.scale, thresh)
+            else:
+                occupied = torch.ones(edges.shape[:-1] + (self.n_candidates,), dtype=torch.bool,
+                                      device=edges.device)
+            occupied = occupied & hit[..., None]
 
-        t_mid, dt, valid = occ.compact_occupied(edges, occupied, self.max_samples)
-        pts = rays.origins[..., None, :] + t_mid[..., None] * rays.viewdirs[..., None, :]
-        # Dead slots all read one constant point; their output is masked.
-        pts = torch.where(valid[..., None], pts, 0.0)
-        if self.sample_budget and self.sample_budget < self.max_samples:
-            # Run the field only on the valid slots (up to the budget), then
-            # expand sigma and rgb back onto the dense [rays, K] grid.
-            batch_shape, k = valid.shape[:-1], valid.shape[-1]
-            n_rays = valid[..., 0].numel()
-            budget = n_rays * int(self.sample_budget)
-            sel, inv = occ.batch_compaction_plan(valid, budget)
-            pts_c = pts.reshape(-1, 3)[sel]
-            ray_id = sel // k
-            vdirs_c = rays.viewdirs.reshape(-1, 3)[ray_id]
-            exp_c = None if exposure is None else exposure.reshape(-1, exposure.shape[-1])[ray_id]
-            sigma_c, rgb_c = self.field(pts_c, vdirs_c, exposure=exp_c,
-                                        output_radiance=self.output_radiance)
-            dense = occ.expand_compacted(torch.cat([sigma_c[:, None], rgb_c], dim=-1), inv, sel)
-            sigma = dense[:, 0].reshape(batch_shape + (k,))
-            rgb = dense[:, 1:].reshape(batch_shape + (k, 3))
-        else:
-            sigma, rgb = self.field(pts, rays.viewdirs[..., None, :],
-                                    exposure=None if exposure is None else exposure[..., None, :],
-                                    output_radiance=self.output_radiance)
-        sigma = torch.where(valid, sigma, 0.0)
+            t_mid, dt, valid = occ.compact_occupied(edges, occupied, self.max_samples)
+            pts = rays.origins[..., None, :] + t_mid[..., None] * rays.viewdirs[..., None, :]
+            # Dead slots all read one constant point; their output is masked.
+            pts = torch.where(valid[..., None], pts, 0.0)
+            compact = bool(self.sample_budget) and self.sample_budget < self.max_samples
+            if compact:
+                # Run the field only on the valid slots (up to the budget), then
+                # expand sigma and rgb back onto the dense [rays, K] grid.
+                batch_shape, k = valid.shape[:-1], valid.shape[-1]
+                n_rays = valid[..., 0].numel()
+                budget = n_rays * int(self.sample_budget)
+                sel, inv = occ.batch_compaction_plan(valid, budget)
+                pts_c = pts.reshape(-1, 3)[sel]
+                ray_id = sel // k
+                vdirs_c = rays.viewdirs.reshape(-1, 3)[ray_id]
+                exp_c = (None if exposure is None
+                         else exposure.reshape(-1, exposure.shape[-1])[ray_id])
+        with tracing.span("ngp.field"):
+            if compact:
+                sigma_c, rgb_c = self.field(pts_c, vdirs_c, exposure=exp_c,
+                                            output_radiance=self.output_radiance)
+                dense = occ.expand_compacted(torch.cat([sigma_c[:, None], rgb_c], dim=-1),
+                                             inv, sel)
+                sigma = dense[:, 0].reshape(batch_shape + (k,))
+                rgb = dense[:, 1:].reshape(batch_shape + (k, 3))
+            else:
+                sigma, rgb = self.field(
+                    pts, rays.viewdirs[..., None, :],
+                    exposure=None if exposure is None else exposure[..., None, :],
+                    output_radiance=self.output_radiance)
+        with tracing.span("ngp.composite"):
+            sigma = torch.where(valid, sigma, 0.0)
 
-        weights = volren.weights_from_optical_depth(sigma * dt)
-        acc = torch.sum(weights, dim=-1)
-        lo, hi = self.bg_intensity_range
-        if lo == hi:
-            bg = lo
-        elif generator is None:
-            bg = 0.5 * (lo + hi)
-        else:
-            bg = lo + (hi - lo) * mesh.rand(acc.shape + (3,), generator=generator,
-                                             device=acc.device)
-        rgb_map = torch.sum(weights[..., None] * rgb, dim=-2) + (1.0 - acc[..., None]) * bg
-        depth = torch.sum(weights * t_mid, dim=-1)
-        rendering = {
-            "rgb": rgb_map,
-            "depth": depth,
-            "distance_mean": depth,
-            "acc": acc,
-            "samples_per_ray": torch.sum(valid, dim=-1),
-            # Marching efficiency: occupied candidates (rm) and rendered
-            # samples (vr) per ray.
-            "rm_per_ray": torch.sum(occupied, dim=-1),
-            "vr_per_ray": torch.sum(valid, dim=-1),
-        }
+            weights = volren.weights_from_optical_depth(sigma * dt)
+            acc = torch.sum(weights, dim=-1)
+            lo, hi = self.bg_intensity_range
+            if lo == hi:
+                bg = lo
+            elif generator is None:
+                bg = 0.5 * (lo + hi)
+            else:
+                bg = lo + (hi - lo) * mesh.rand(acc.shape + (3,), generator=generator,
+                                                 device=acc.device)
+            rgb_map = torch.sum(weights[..., None] * rgb, dim=-2) + (1.0 - acc[..., None]) * bg
+            depth = torch.sum(weights * t_mid, dim=-1)
+            rendering = {
+                "rgb": rgb_map,
+                "depth": depth,
+                "distance_mean": depth,
+                "acc": acc,
+                "samples_per_ray": torch.sum(valid, dim=-1),
+                # Marching efficiency: occupied candidates (rm) and rendered
+                # samples (vr) per ray.
+                "rm_per_ray": torch.sum(occupied, dim=-1),
+                "vr_per_ray": torch.sum(valid, dim=-1),
+            }
         history = dict(weights=weights, steps=t_mid, lengths=dt, valid=valid)
         return [rendering], [history]
 
@@ -323,7 +336,8 @@ class HashGridModel(nn.Module):
         `eval_early_stop_eps` or it leaves the scene. The loop ends when no
         ray is alive or after `max_rounds` (by default enough to render
         `eval_max_total_samples` through fully occupied windows). Each round
-        reads one or two flags back from the device.
+        reads one or two flags back from the device, and is marked
+        `ngp.eval_round` under a profiler.
 
         Returns rgb (over the `bg_intensity_range` midpoint), depth,
         distance_mean, acc, samples_per_ray and rounds, per ray.
@@ -353,39 +367,41 @@ class HashGridModel(nn.Module):
         offsets = torch.arange(n_cand + 1, dtype=torch.float32, device=t_near.device)
         rounds = 0
         while rounds < max_rounds and bool(alive.any()):
-            # A constant step within a round, growing with t across rounds.
-            dt_r = occ.calc_dt(t, exp_factor, self.eval_max_total_samples,
-                               self.grid_resolution, self.e_max)
-            edges = t[..., None] + offsets * dt_r[..., None]
-            mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
-            pts = origins[..., None, :] + mids[..., None] * viewdirs[..., None, :]
-            occupied = occ.lookup(occupancy, pts, self.scale, thresh)
-            occupied &= (mids < t_far[..., None]) & alive[..., None]
-            # Without subsampling an over-full window is revisited next round.
-            t_mid, dt, valid = occ.compact_occupied(edges, occupied, n_samp, subsample=False)
-            if bool(valid.any()):
-                sample_pts = origins[..., None, :] + t_mid[..., None] * viewdirs[..., None, :]
-                # Dead slots all read one constant point; their output is masked.
-                sample_pts = torch.where(valid[..., None], sample_pts, 0.0)
-                sigma, rgb = self.field(sample_pts, viewdirs[..., None, :], exposure=exposure,
-                                        output_radiance=self.output_radiance, prepared=prepared)
-            else:  # pure marching: no field evaluation this round
-                sigma = torch.zeros_like(t_mid)
-                rgb = torch.zeros(t_mid.shape + (3,), device=t_mid.device)
-            tau = torch.where(valid, sigma, 0.0) * dt
-            trans_in = torch.exp(-torch.cat(
-                [torch.zeros_like(tau[..., :1]), torch.cumsum(tau[..., :-1], dim=-1)], dim=-1))
-            w = trans[..., None] * trans_in * (1.0 - torch.exp(-tau))
-            new_trans = trans * torch.exp(-torch.sum(tau, dim=-1))
-            t_end_valid = torch.amax(torch.where(valid, t_mid + 0.5 * dt, float("-inf")), dim=-1)
-            truncated = torch.sum(occupied, dim=-1) > n_samp
-            t = torch.where(truncated, torch.maximum(t_end_valid, t), edges[..., -1])
-            alive = alive & (new_trans > self.eval_early_stop_eps) & (t < t_far)
-            trans = new_trans
-            rgb_acc = rgb_acc + torch.sum(w[..., None] * rgb, dim=-2)
-            depth = depth + torch.sum(w * t_mid, dim=-1)
-            acc = acc + torch.sum(w, dim=-1)
-            n_samples = n_samples + torch.sum(valid, dim=-1)
+            with tracing.span("ngp.eval_round"):
+                # A constant step within a round, growing with t across rounds.
+                dt_r = occ.calc_dt(t, exp_factor, self.eval_max_total_samples,
+                                   self.grid_resolution, self.e_max)
+                edges = t[..., None] + offsets * dt_r[..., None]
+                mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
+                pts = origins[..., None, :] + mids[..., None] * viewdirs[..., None, :]
+                occupied = occ.lookup(occupancy, pts, self.scale, thresh)
+                occupied &= (mids < t_far[..., None]) & alive[..., None]
+                # Without subsampling an over-full window is revisited next round.
+                t_mid, dt, valid = occ.compact_occupied(edges, occupied, n_samp, subsample=False)
+                if bool(valid.any()):
+                    sample_pts = origins[..., None, :] + t_mid[..., None] * viewdirs[..., None, :]
+                    # Dead slots all read one constant point; their output is masked.
+                    sample_pts = torch.where(valid[..., None], sample_pts, 0.0)
+                    sigma, rgb = self.field(sample_pts, viewdirs[..., None, :], exposure=exposure,
+                                            output_radiance=self.output_radiance, prepared=prepared)
+                else:  # pure marching: no field evaluation this round
+                    sigma = torch.zeros_like(t_mid)
+                    rgb = torch.zeros(t_mid.shape + (3,), device=t_mid.device)
+                tau = torch.where(valid, sigma, 0.0) * dt
+                trans_in = torch.exp(-torch.cat(
+                    [torch.zeros_like(tau[..., :1]), torch.cumsum(tau[..., :-1], dim=-1)], dim=-1))
+                w = trans[..., None] * trans_in * (1.0 - torch.exp(-tau))
+                new_trans = trans * torch.exp(-torch.sum(tau, dim=-1))
+                t_end_valid = torch.amax(torch.where(valid, t_mid + 0.5 * dt, float("-inf")),
+                                         dim=-1)
+                truncated = torch.sum(occupied, dim=-1) > n_samp
+                t = torch.where(truncated, torch.maximum(t_end_valid, t), edges[..., -1])
+                alive = alive & (new_trans > self.eval_early_stop_eps) & (t < t_far)
+                trans = new_trans
+                rgb_acc = rgb_acc + torch.sum(w[..., None] * rgb, dim=-2)
+                depth = depth + torch.sum(w * t_mid, dim=-1)
+                acc = acc + torch.sum(w, dim=-1)
+                n_samples = n_samples + torch.sum(valid, dim=-1)
             rounds += 1
         lo, hi = self.bg_intensity_range
         return {

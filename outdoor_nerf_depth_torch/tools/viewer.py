@@ -29,6 +29,7 @@ from outdoor_nerf_depth_torch.tools.render import frame_batch
 from outdoor_nerf_depth_torch.train import step as step_lib
 from outdoor_nerf_depth_torch.train.config import load_config
 from outdoor_nerf_depth_torch.train.loop import build_dataset, resolve_device, set_full_float32
+from outdoor_nerf_depth_torch.utils import tracing
 from outdoor_nerf_depth_torch.utils import vis as vis_lib
 
 HEADLESS = ("the viewer's window needs matplotlib, which is not installed; "
@@ -81,10 +82,12 @@ def orbit_around(camtoworlds) -> OrbitCamera:
 
 def view_batch(dataset, cam: OrbitCamera, height: int, width: int):
     """The [height, width] rays of a pinhole of focal 1.1 width at the
-    orbit's pose, cast with the dataset's camera type and near/far."""
-    pixtocam = cameras_lib.pinhole_pixtocam(1.1 * width, width, height).astype(np.float32)
-    return frame_batch(cam.pose(), pixtocam, height, width, dataset.near, dataset.far,
-                       dataset.camtype)
+    orbit's pose, cast with the dataset's camera type and near/far (on the
+    host; marked `view.cast` under a profiler)."""
+    with tracing.span("view.cast"):
+        pixtocam = cameras_lib.pinhole_pixtocam(1.1 * width, width, height).astype(np.float32)
+        return frame_batch(cam.pose(), pixtocam, height, width, dataset.near, dataset.far,
+                           dataset.camtype)
 
 
 def render_view(config, dataset, model, cam: OrbitCamera, height: int, width: int, device=None):

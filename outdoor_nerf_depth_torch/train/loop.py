@@ -24,7 +24,12 @@ test renders and checkpoints fire when an iteration crosses their cadence,
 and at `max_steps`, and a log line carries the iteration's last step.
 `profile_start_step` > 0 records a `torch.profiler` trace of the steps
 from there for `profile_num_steps` steps (whole iterations) into
-`exp_dir/trace`.
+`exp_dir/trace`. Under any profiler the loop marks its phases
+(`utils/tracing.py`): `loop.step` around each trained step (the refresh that
+falls due before an iteration inside its first), holding `loop.refresh`
+and `loop.batch` (`loop.batch.wait` on the prefetch queue,
+`loop.batch.copy` to the device) before the step's own spans; then
+`loop.log`, `loop.render` and `loop.checkpoint`.
 
 `train` writes `exp_dir/config.json` and the model-identity sidecar, saves a
 checkpoint every `checkpoint_every` steps and at `max_steps` (the one
@@ -65,6 +70,7 @@ from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train import step as step_lib
 from outdoor_nerf_depth_torch.train.config import Config, save_config
 from outdoor_nerf_depth_torch.utils import image as image_lib
+from outdoor_nerf_depth_torch.utils import tracing
 from outdoor_nerf_depth_torch.utils import vis as vis_lib
 from outdoor_nerf_depth_torch.utils.logging import MetricWriter
 
@@ -288,61 +294,70 @@ def train(config: Config, device=None, log_fn=print, dataset=None, max_steps=Non
     while step < max_steps:
         fused = min(n_fuse, max_steps - step)
         profile.before(step, n_fuse)
-        if occ_update is not None and step >= next_occ:
-            # The grid starts empty: without this refresh before step 0 the
-            # first step would march no sample at all.
-            warmup = step < config.occupancy_warmup_steps
-            model.occupancy.copy_(occ_update(model.occupancy, generator, warmup))
-            next_occ = (step // occ_every + 1) * occ_every
         for i in range(fused):
-            batch = rays_lib.to_device(next(batches), device, non_blocking=True)
-            stats = train_step(batch, step + i, (step + i) / max_steps, generator)
+            with tracing.span("loop.step"):
+                if i == 0 and occ_update is not None and step >= next_occ:
+                    # The grid starts empty: without this refresh before step
+                    # 0 the first step would march no sample at all.
+                    with tracing.span("loop.refresh"):
+                        warmup = step < config.occupancy_warmup_steps
+                        model.occupancy.copy_(occ_update(model.occupancy, generator, warmup))
+                    next_occ = (step // occ_every + 1) * occ_every
+                with tracing.span("loop.batch"):
+                    with tracing.span("loop.batch.wait"):
+                        batch = next(batches)
+                    with tracing.span("loop.batch.copy"):
+                        batch = rays_lib.to_device(batch, device, non_blocking=True)
+                stats = train_step(batch, step + i, (step + i) / max_steps, generator)
         prev, step = step, step + fused
         rays_since += config.batch_size * fused
         profile.after(step)
         if crossed(prev, step, config.print_every) or step == max_steps:
-            loss = float(stats["loss"])  # waits for the device
-            now = time.perf_counter()
-            entry = {
-                "step": step,
-                "loss": loss,
-                "psnr": float(stats["psnr"]),
-                "rays_per_sec": rays_since / (now - t_last),
-                "rays_per_sec_per_chip": rays_since / (now - t_last) / n_ranks,
-                "grad_norm": float(stats["grad_norm"]),
-                **{f"loss_{k}": float(v) for k, v in stats["loss_terms"].items()},
-                **{k: float(stats[k]) for k in ("rm_s", "vr_s") if k in stats},
-            }
-            history.append(entry)
-            log_fn(json.dumps({k: round(v, 5) if isinstance(v, float) else v
-                               for k, v in entry.items()}))
-            writer.scalars(step, entry, prefix="train")
+            with tracing.span("loop.log"):
+                loss = float(stats["loss"])  # waits for the device
+                now = time.perf_counter()
+                entry = {
+                    "step": step,
+                    "loss": loss,
+                    "psnr": float(stats["psnr"]),
+                    "rays_per_sec": rays_since / (now - t_last),
+                    "rays_per_sec_per_chip": rays_since / (now - t_last) / n_ranks,
+                    "grad_norm": float(stats["grad_norm"]),
+                    **{f"loss_{k}": float(v) for k, v in stats["loss_terms"].items()},
+                    **{k: float(stats[k]) for k in ("rm_s", "vr_s") if k in stats},
+                }
+                history.append(entry)
+                log_fn(json.dumps({k: round(v, 5) if isinstance(v, float) else v
+                                   for k, v in entry.items()}))
+                writer.scalars(step, entry, prefix="train")
             t_last, rays_since = time.perf_counter(), 0
         if test_dataset is not None and crossed(prev, step, config.train_render_every):
-            idx = (step // config.train_render_every) % test_dataset.n_images
-            batch = test_dataset.image_batch(idx)
-            rendering = step_lib.render_image(model, batch, config.render_chunk_size, device,
-                                              config.ngp_eval_renderer)
-            m = metrics_lib.MetricSuite(compute_ssim=False)(
-                rendering["rgb"], batch.rgb.numpy(),
-                pred_depth=rendering["distance_mean"],
-                gt_depth=None if batch.depth_gt is None else batch.depth_gt.numpy(),
-                depth_scale=config.depth_scale,
-            )
-            writer.scalars(step, m, prefix="train_render")
-            panel = vis_lib.side_by_side(
-                rendering["rgb"], batch.rgb.numpy(),
-                vis_lib.visualize_depth(rendering["distance_mean"] / config.depth_scale))
-            writer.image(step, "train_render/view", panel)
-            log_fn(json.dumps({"step": step, "test_view": idx,
-                               **{k: round(v, 4) for k, v in m.items()}}))
+            with tracing.span("loop.render"):
+                idx = (step // config.train_render_every) % test_dataset.n_images
+                batch = test_dataset.image_batch(idx)
+                rendering = step_lib.render_image(model, batch, config.render_chunk_size, device,
+                                                  config.ngp_eval_renderer)
+                m = metrics_lib.MetricSuite(compute_ssim=False)(
+                    rendering["rgb"], batch.rgb.numpy(),
+                    pred_depth=rendering["distance_mean"],
+                    gt_depth=None if batch.depth_gt is None else batch.depth_gt.numpy(),
+                    depth_scale=config.depth_scale,
+                )
+                writer.scalars(step, m, prefix="train_render")
+                panel = vis_lib.side_by_side(
+                    rendering["rgb"], batch.rgb.numpy(),
+                    vis_lib.visualize_depth(rendering["distance_mean"] / config.depth_scale))
+                writer.image(step, "train_render/view", panel)
+                log_fn(json.dumps({"step": step, "test_view": idx,
+                                   **{k: round(v, 4) for k, v in m.items()}}))
         # The checkpoint labelled N holds N trained steps.
         if crossed(prev, step, config.checkpoint_every) or step == max_steps:
-            if lead:
-                ckpt.save(step, {"model": model.state_dict(),
-                                 "optimizer": optimizer.state_dict(),
-                                 "step": step, "generator": generator.get_state()})
-            parallel.barrier()
+            with tracing.span("loop.checkpoint"):
+                if lead:
+                    ckpt.save(step, {"model": model.state_dict(),
+                                     "optimizer": optimizer.state_dict(),
+                                     "step": step, "generator": generator.get_state()})
+                parallel.barrier()
     profile.after(step, force=True)  # a window that ran past max_steps
     writer.close()
     return model, history

@@ -45,6 +45,7 @@ from outdoor_nerf_depth_torch.train import checkpoints as ckpt_lib
 from outdoor_nerf_depth_torch.train import losses as losses_lib
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib
 from outdoor_nerf_depth_torch.train.config import Config
+from outdoor_nerf_depth_torch.utils import tracing
 
 
 REMAT_MODES = ("none", "dots", "full")
@@ -472,6 +473,11 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
     gradient is each rank's sorted row sums over its own samples (K2a runs
     per rank), and the all-reduce is the reference's psum of shard-local
     row sums (`ops/hashgrid.py:set_grad_mesh`); no switch is needed.
+
+    Under a profiler the phases are marked (`utils/tracing.py`): `step.cast`,
+    `step.forward`, `step.loss`, `step.backward` and `step.optimizer` (the
+    all-reduce, norm, clip, `nan_to_num` and Adam); an NGP step counts its
+    rendered samples (`ngp.samples` over `ngp.rays`).
     """
     compute_extras = config.lambda_depth > 0 and config.depth_loss_type in (
         "mse", "l1", "urf", "nll"
@@ -484,16 +490,19 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
 
     def chunk_backward(batch, rays, train_frac, generator, share):
         """Forward, loss and backward of one chunk; its stats."""
-        renderings, ray_history = forward(rays, train_frac, generator)
+        with tracing.span("step.forward"):
+            renderings, ray_history = forward(rays, train_frac, generator)
         after = None if generator is None or not remat else generator.get_state()
-        loss_terms, stats = _total_loss(config, batch, renderings, ray_history, rays, share)
-        if config.weight_decay_mults:
-            weight = sum(
-                (mult * sum(torch.sum(p**2) for p in ps) for mult, ps in decayed),
-                torch.zeros((), device=stats["psnr"].device))
-            loss_terms["weight"] = weight if share is None else weight * share.rays
-        total = sum(loss_terms.values())
-        total.backward()
+        with tracing.span("step.loss"):
+            loss_terms, stats = _total_loss(config, batch, renderings, ray_history, rays, share)
+            if config.weight_decay_mults:
+                weight = sum(
+                    (mult * sum(torch.sum(p**2) for p in ps) for mult, ps in decayed),
+                    torch.zeros((), device=stats["psnr"].device))
+                loss_terms["weight"] = weight if share is None else weight * share.rays
+            total = sum(loss_terms.values())
+        with tracing.span("step.backward"):
+            total.backward()
         if after is not None:
             generator.set_state(after)
         stats["loss_terms"] = {k: v.detach() for k, v in loss_terms.items()}
@@ -529,25 +538,32 @@ def make_train_step(config: Config, model, optimizer, lr_fn, cameras=None,
     def step(batch, step_index: int, train_frac: float, generator=None):
         rays = batch.rays
         if isinstance(rays, rays_lib.Pixels):
-            rays = cameras_lib.cast_pixels(rays, cameras, camtype)
+            with tracing.span("step.cast"):
+                rays = cameras_lib.cast_pixels(rays, cameras, camtype)
         generator = generator if config.randomized else None
         optimizer.zero_grad(set_to_none=False)
         stats = chunks_backward(batch, rays, train_frac, generator)
-        with torch.no_grad():
-            for p in params:
-                if p.grad is None:  # unused this step: a zero gradient
-                    p.grad = torch.zeros_like(p)
-            parallel.all_reduce_sum_([p.grad for p in params])
-            if n_accum > 1:
+        if "vr_s" in stats:
+            # The step's mean rendered samples a ray, kept on the device.
+            n_rays = batch.rgb.shape[0]
+            tracing.count("ngp.samples", stats["vr_s"], n_rays)
+            tracing.count("ngp.rays", n_rays)
+        with tracing.span("step.optimizer"):
+            with torch.no_grad():
                 for p in params:
-                    p.grad.div_(n_accum)
-            stats["grad_norm"] = global_norm([p.grad for p in params])
-            clip_gradients(model, config)
-            for p in params:
-                torch.nan_to_num_(p.grad)
-        for group in optimizer.param_groups:
-            group["lr"] = lr_fn(step_index)
-        optimizer.step()
+                    if p.grad is None:  # unused this step: a zero gradient
+                        p.grad = torch.zeros_like(p)
+                parallel.all_reduce_sum_([p.grad for p in params])
+                if n_accum > 1:
+                    for p in params:
+                        p.grad.div_(n_accum)
+                stats["grad_norm"] = global_norm([p.grad for p in params])
+                clip_gradients(model, config)
+                for p in params:
+                    torch.nan_to_num_(p.grad)
+            for group in optimizer.param_groups:
+                group["lr"] = lr_fn(step_index)
+            optimizer.step()
         return stats
 
     return step
@@ -605,36 +621,57 @@ def render_image(model, batch, chunk_size: int = 16384, device=None,
     rows (the NGP batch plan spans the chunk, `parallel.row_shard`), the
     rows are gathered in rank order and the padding trimmed, so every rank
     returns the image one process renders.
+
+    Under a profiler it marks `render.image`, holding a `render.chunk` a chunk
+    (`render.copy_in`, the model's spans, `render.copy_out`) and then
+    `render.assemble`; an NGP model's chunks count their samples
+    (`ngp.samples` over `ngp.rays`, from the host copy).
     """
-    device = device or next(model.parameters()).device
-    iterative = isinstance(model, HashGridModel) and ngp_eval_renderer == "iterative"
-    mesh_ = parallel.make_mesh()
-    distributed = parallel.active()
-    rays = batch.rays
-    h, w = rays.origins.shape[:2]
-    flat = rays_lib.map_fields(lambda r: r.reshape((h * w,) + r.shape[2:]), rays)
-    outs = []
-    for start in range(0, h * w, chunk_size):
+    with tracing.span("render.image"):
+        device = device or next(model.parameters()).device
+        ngp = isinstance(model, HashGridModel)
+        iterative = ngp and ngp_eval_renderer == "iterative"
+        mesh_ = parallel.make_mesh()
+        distributed = parallel.active()
+        rays = batch.rays
+        h, w = rays.origins.shape[:2]
+        flat = rays_lib.map_fields(lambda r: r.reshape((h * w,) + r.shape[2:]), rays)
+        outs = []
+        for start in range(0, h * w, chunk_size):
+            with tracing.span("render.chunk"):
+                outs.append(_render_chunk(model, flat, start, chunk_size, device, iterative,
+                                          mesh_, distributed))
+                if ngp:
+                    tracing.count("ngp.samples", outs[-1]["samples_per_ray"])
+                    tracing.count("ngp.rays", outs[-1]["samples_per_ray"].shape[0])
+        with tracing.span("render.assemble"):
+            return {
+                k: torch.cat([o[k] for o in outs]).reshape((h, w) + outs[0][k].shape[1:]).numpy()
+                for k in outs[0]
+            }
+
+
+def _render_chunk(model, flat, start: int, chunk_size: int, device, iterative: bool, mesh_,
+                  distributed: bool) -> dict:
+    """The finest level's per-ray outputs of rays [start, start + chunk_size) on the host."""
+    with tracing.span("render.copy_in"):
         chunk = rays_lib.map_fields(lambda r: r[start : start + chunk_size], flat)
         pad = 0
         if distributed:
             chunk, pad = rays_lib.pad_to_multiple(chunk, mesh_.size)
             chunk = parallel.shard_batch(chunk, mesh_)
         chunk = rays_lib.to_device(chunk, device)
-        with (parallel.row_shard(mesh_.rank, mesh_.size) if distributed
-              else contextlib.nullcontext()):
-            if iterative:
-                final = model.render_eval(chunk, model.occupancy)
-            else:
-                renderings, _ = model(chunk, train_frac=1.0, compute_extras=True,
-                                      **_grid_kwargs(model))
-                final = renderings[-1]
-        final = {k: v for k, v in final.items() if not k.startswith("ray_")}
-        if distributed:
-            final = {k: parallel.all_gather_rows(v) for k, v in final.items()}
-            final = {k: v[: v.shape[0] - pad] for k, v in final.items()}
-        outs.append({k: v.cpu() for k, v in final.items()})
-    return {
-        k: torch.cat([o[k] for o in outs]).reshape((h, w) + outs[0][k].shape[1:]).numpy()
-        for k in outs[0]
-    }
+    with (parallel.row_shard(mesh_.rank, mesh_.size) if distributed
+          else contextlib.nullcontext()):
+        if iterative:
+            final = model.render_eval(chunk, model.occupancy)
+        else:
+            renderings, _ = model(chunk, train_frac=1.0, compute_extras=True,
+                                  **_grid_kwargs(model))
+            final = renderings[-1]
+    final = {k: v for k, v in final.items() if not k.startswith("ray_")}
+    if distributed:
+        final = {k: parallel.all_gather_rows(v) for k, v in final.items()}
+        final = {k: v[: v.shape[0] - pad] for k, v in final.items()}
+    with tracing.span("render.copy_out"):
+        return {k: v.cpu() for k, v in final.items()}

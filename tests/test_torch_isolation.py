@@ -105,6 +105,7 @@ def test_the_prior_modules_are_checked(module):
     "outdoor_nerf_depth_torch.utils.image",
     "outdoor_nerf_depth_torch.utils.vis",
     "outdoor_nerf_depth_torch.utils.logging",
+    "outdoor_nerf_depth_torch.utils.tracing",
     "outdoor_nerf_depth_torch.train.lpips",
     "outdoor_nerf_depth_torch.train.metrics",
     "outdoor_nerf_depth_torch.train.offline_eval",
