@@ -14,7 +14,10 @@ non-zero without the final line:
               which must match bit for bit; K2a and K2b also twice on one
               input, their run-to-run difference, and on bf16 inputs, which
               they accumulate in f32 and return in bf16; K2a also at the oct
-              layout's [4194304, 16]); times from CUDA
+              layout's [4194304, 16], K2b at the osplit step's
+              [16, 262144, 16]; K3a and K3b bit for bit at the osplit step's
+              shape and at edge cases, on row ids drawn in each level's
+              rows); times from CUDA
               events, with K1a and K1b also for one ray (their launch
               floor), a device copy of K2b's input, and P2 also at chunks
               of 256 and 1024 rows (same bytes, other k-step counts)
@@ -30,15 +33,20 @@ non-zero without the final line:
   ngp_train   train() on configs/kitti_ngp.json at full width (hash grid
               L16 F2 T2^19, batch 8192, sample budget 32) on the same scene for
               20 steps, occupancy refreshes at steps 0 and 16, then a warmup and
-              a sampled refresh timed on their own; 16 K2a launches per step
+              a sampled refresh timed on their own; 1 K3a, 1 K2b (all 16
+              levels at once) and 1 K3b launch per step
   ngp_render  render_image() of one 94x310 view with the trained grid, held
               against the same model and grid on the CPU for a few rays
   ngp_profile two more NGP train steps under torch.profiler, then one warmup
               and one sampled occupancy refresh
   probe_osplit_bwd  probes.osplit_bwd.run() at full size (524,288 points, L16,
               T 2^19): the hash-table backward stage by stage, 16 scans against
-              one K2b launch; one K2b launch per timed batched call, 16 K2a
-              launches per timed fwd+bwd, merged row sums equal to the port's
+              one K2b launch; one K2b launch per timed batched call, per
+              timed fwd+bwd and per one-pass table gradient, 16 K2a per
+              per-level one, one K3a or K3b per timed call of either alone,
+              and the K2b, K3a and K3b totals equal to the probe's calls;
+              merged row sums equal to the port's, the one
+              pass's table gradient equal to the per-level one's
   probe_gather      probes.gather_attack.run() at full size (8.4M queries):
               index_select against table size, sorts against operand count,
               P1 and P2 beside index_select
@@ -51,7 +59,7 @@ non-zero without the final line:
               (and again on numpy-sampled pixels, use_native_batcher=false,
               its steps beside the dataplane's),
               and both evaluated on the 3 test views (PSNR, SSIM, depth
-              RMSE); K1a, K1b and K2a launches counted on each part
+              RMSE); the port's kernel launches counted on each part
   nerfpp      NeRF++ on the same fixture's NeRF++ layout (<fixture>/nerfpp):
               configs/kitti_nerfpp.json at full width (cascade 64 + 128,
               fg and bg PointFieldMLP 8x256, batch 1024, float32, clip 1.0)
@@ -73,8 +81,8 @@ non-zero without the final line:
               matmuls must run as bf16 tensor-core GEMMs, above the float32
               SIMT peak), a render held against the CPU; the flagship at batch
               4096 in bf16 beside phase train's float32 step; and
-              configs/kitti_ngp.json in bf16 for 20 steps (16 K2a launches a
-              step) with a render held against the CPU
+              configs/kitti_ngp.json in bf16 for 20 steps (1 K3a, 1 K2b and
+              1 K3b a step) with a render held against the CPU
   ngp_eval    NGP's iterative eval renderer (ngp_eval_renderer=iterative) on
               the grid phase kitti trained: a 94x310 test view, its rounds and
               samples per ray, held against the dense train-path renderer at
@@ -132,7 +140,7 @@ non-zero without the final line:
               600 steps with its thresholds asserted (PSNR >= 26 dB, depth RMSE
               <= 0.10), mip and NeRF++ at a tenth of their 3,000 steps with
               their metrics reported; train and eval seconds, ms a step and the
-              K1a, K1b and K2a launches of each (asserted)
+              kernel launches of each (asserted)
   cameras     copies of phase kitti's driving layout whose COLMAP camera is
               rewritten as OPENCV and as OPENCV_FISHEYE: one batch of pixels
               cast on the card against the CPU's cast (1e-5 of the largest
@@ -143,7 +151,7 @@ non-zero without the final line:
   depth_losses mip, NGP and NeRF++ at full width on the kitti fixture under
               the mse, urf and nll depth losses (8, 20 and 10 steps): finite
               depth losses, the launches of each run (3 K1a + 3 K1b a mip
-              step, 1 + 1 + 16 K2a an NGP step, none for NeRF++), and each
+              step, 1 + 1 + 1 + 1 + 1 an NGP step, none for NeRF++), and each
               loss's median step ms over mse's
   ngp_layouts the rest of NGP on the kitti fixture at full width:
               configs/kitti_ngp.json under hash_layout oct, oct with
@@ -154,7 +162,7 @@ non-zero without the final line:
               against the CPU on 4,096 points (forward, and the sorted table
               gradient against autograd's scatter one); the HDR field with
               optimize_ext on osplit for 20 steps (pose_dT's gradient finite
-              and non-zero, 16 K2a a step), its test views through the
+              and non-zero, 1 K3a, 1 K2b and 1 K3b a step), its test views through the
               dense and the iterative renderer; mark_invisible_cells on the
               fixture's 27 train cameras and the 5 cascades of 128^3 cells
               (ms, culled cells, border flips against the CPU); the NGP
@@ -195,29 +203,29 @@ non-zero without the final line:
               tools/make_blender_fixture.py (100 train and 4 test views of
               800x800 RGBA, camera_angle_x 0.6911): write and load seconds,
               300 steps of the config's schedule (past its 256 warmup steps;
-              1 K1a, 1 K1b and 16 K2a a step), ms a step and rays/s, and the
+              1 K1a, 1 K1b, 1 K3a, 1 K2b and 1 K3b a step), ms a step and rays/s, and the
               test views' PSNR (40 K1a a view)
   public_bench tools.run_public_benchmark synthetic_nerf through its main, on
               phase blender's layout as a one-scene suite: NGP in bf16 at the
               suite's batch 16384 with 8 steps a dispatch for 200 steps and
               its 4 test views; the summary's PSNR and SSIM, ms a step from
-              the loop's log lines, 1 K1a, 1 K1b and 16 K2a a step and 1 K1a
-              a render chunk; K2a only at a shape phase kernels checks, and
-              each K1 shape that phase kernels does not check held against
-              the plain version after the run (K1 at FWD_ATOL/BWD_ATOL, K2a
+              the loop's log lines, 1 K1a, 1 K1b, 1 K3a, 1 K2b and 1 K3b a
+              step and 1 K1a a render chunk; K2b only at a shape phase kernels
+              checks, and each K1 shape that phase kernels does not check held
+              against the plain version after the run (K1 at FWD_ATOL/BWD_ATOL, K2a
               at SCAN_RTOL; the kernels line takes these errors in)
   bench_probes each bench probe once at full width with the fewest
               repetitions that give a median, each one's dict emitted:
               probes.ngp_step (8192 rays, 64 samples, 20 steps with refreshes
-              before steps 0 and 16; 1 K1a, 1 K1b, 16 K2a a step),
+              before steps 0 and 16; 1 K1a, 1 K1b, 1 K3a, 1 K2b, 1 K3b a step),
               probes.ngp_bwd (the oct table gradient's stages at 8192 x 64
               points; K2a once a call of the scan, the bf16 and factored
               variants and the whole backward), probes.ngp_eval (chunks 8192
               and 32768; K1a only on the dense renderer), each NGP probe's
               K1 and K2a shapes held against the plain version after it, as
               in public_bench (here K1 at [8192, 64] and [32768, 64] and K2a
-              at [8388608, 16]; ngp_step's K2a shape [524288, 16] is one of
-              phase kernels'),
+              at [8388608, 16]; ngp_step's K2b shape [16, 524288, 16] is one
+              of phase kernels'),
               probes.nerfpp_mfu ((1024, 8), (1024, 32), (4096, 8)), all seven
               of probes.nerfpp_ablate at 2 timed dispatches and
               probes.profile_step; no kernel launches on the NeRF++ probes
@@ -231,7 +239,7 @@ non-zero without the final line:
               the flagship at full width on the synthetic scene for 6 steps
               with checkpoints at 3 and 6 and its test-split eval (3 K1a and
               3 K1b a step, 3 K1a a test view), then configs/kitti_ngp.json
-              for 6 steps (16 K2a a step), the step ms of each and the ms of
+              for 6 steps (1 K3a, 1 K2b and 1 K3b a step), the step ms of each and the ms of
               the step's flat gradient all-reduce; (b) world 2 under gloo,
               both ranks on cuda:0 with CUDA tensors (no move to the CPU):
               3 flagship steps, 3 under remat=dots (whose recompute runs on
@@ -242,7 +250,11 @@ non-zero without the final line:
               parameters; tolerances at DDP_*), with the per-rank step ms,
               the launches on each rank and the gloo all-reduce ms
 
-then the kernel summary, and last `{"ok": true, "device": {...}}`.
+K3a and K3b are held against their plain versions (bit for bit) at every
+launch key of every phase, phase ddp's ranks included: the keys are recorded
+for the whole run, and those phase kernels did not check are checked after
+the paths that hold their shapes (`_hold_path_shapes`) and before the
+summary. Then the kernel summary, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -277,6 +289,7 @@ from outdoor_nerf_depth_torch.depth_priors import completion as prior_completion
 from outdoor_nerf_depth_torch.depth_priors import datasets as prior_datasets  # noqa: E402
 from outdoor_nerf_depth_torch.depth_priors import pose as pose_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build, prefix_scan  # noqa: E402
+from outdoor_nerf_depth_torch.ops import hashgrid, hashgrid_grad  # noqa: E402
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import refdirs, volren, volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bwd  # noqa: E402
@@ -337,25 +350,30 @@ K1_EDGE_SHAPES = [(7, 33), (130, 192), (5, 126), (9, 66)]
 # other one after they run (`_hold_path_shapes`).
 K1_CHECK_SHAPES = [(4096, 64), (4096, 32), (16384, 32), (16384, 64), NGP_K1_SHAPE] + K1_EDGE_SHAPES
 K1_FLOOR_SHAPE = (1, 64)  # one ray: K1's time per call is then launch and latency
-# K2a: one inclusive scan per hash level on the [points, 8F] table-gradient
-# stream. Per element: read 4 B, write 4 B, one add.
+# K2a: one inclusive scan of a [points, 8F] table-gradient stream. Per
+# element: read 4 B, write 4 B, one add.
 SCAN_BYTES, SCAN_OPS = 8, 1
-SCAN_PATH = (262144, 16)  # batch 8192 x sample_budget 32 points, 8F = 16 lanes
+NGP_LEVELS = 16
+SCAN_PATH = (262144, 16)  # batch 8192 x sample_budget 32 points, 8F = 16 lanes: one level
 # The oct layout's one scan a step over all 16 levels at once.
 OCT_SCAN_PATH = (16 * SCAN_PATH[0], 16)
 SCAN_SHAPES = [SCAN_PATH, (1048576, 16), OCT_SCAN_PATH, (16777216, 16),  # path, budget 0, oct, 16.8M
                (osplit_bwd.SAMPLES, osplit_bwd.LANES),  # the osplit probe's per-level scan
                (1, 8), (7, 8), (4097, 8), (1, 128), (7, 128), (4097, 128)]
+# K2b: the osplit table gradient's one scan a step over all 16 levels.
+OSPLIT_SCAN_PATH = (NGP_LEVELS,) + SCAN_PATH
+OSPLIT_SCAN_BUDGET0 = (NGP_LEVELS, 8192 * 128, 16)  # no sample budget: every slot (blender)
 # A float32 prefix sum in any order is off the exact sum by a few ulps of
 # the running sum of |x| (its deepest chain here is ~550 adds at 16.8M rows,
 # and rounding errors of random sign grow as the root of that): 1e-5 of
 # the running |x| sum, for the kernel and the plain version against float64
 # and for the two against each other.
 SCAN_RTOL = 1e-5
-NGP_LEVELS = 16
-# K2b: the osplit probe's 16 levels x 8192*64 points x 8F lanes, and edges.
+# K2b: the osplit probe's 16 levels x 8192*64 points x 8F lanes, the
+# osplit step's, and edges.
 SCAN_BATCHED_PATH = (NGP_LEVELS, osplit_bwd.SAMPLES, osplit_bwd.LANES)
-SCAN_BATCHED_SHAPES = [SCAN_BATCHED_PATH, (3, 100, 16), (3, 1025, 16), (1, 1, 8), (2, 7, 128),
+SCAN_BATCHED_SHAPES = [SCAN_BATCHED_PATH, OSPLIT_SCAN_PATH, OSPLIT_SCAN_BUDGET0,
+                       (3, 100, 16), (3, 1025, 16), (1, 1, 8), (2, 7, 128),
                        (5, 4097, 8),
                        # many tiles per element; many elements of one tile or
                        # less; lanes 1 and 128 (the scalar and widest builds)
@@ -373,6 +391,18 @@ ONEHOT_SCALING_CHUNKS = (256, 1024)  # P2 timed beside the probe's 512 as well
 # (its eps, relative) of the running |x| sum.
 SCAN_BF16_SHAPES = [SCAN_PATH, (3, 70001, 16)]
 SCAN_BF16_RTOL = float(torch.finfo(torch.bfloat16).eps)
+# K3a and K3b, the osplit table gradient's kernels, at the NGP train step's
+# shape (8192 rays x budget 32 points, L16 F2 T 2^19, scale 8: resolutions
+# 16 to 32767) and off the path (dense, boundary and hashed levels at T
+# 2^10, features 1 and 4, P not a multiple of 8), on row ids drawn in each
+# level's rows. Both must equal their plain versions bit for bit. Bytes:
+# K3a reads a sorted row's sort index, 8 weights and F cotangent values and
+# writes its 8F products; K3b reads the 8F prefix sums at the end of each
+# non-empty segment (counted from the ends on the timed inputs) and each
+# trimmed row's end, and writes F values a table row.
+GRAD_RES = tuple(int(r) for r in hashgrid.level_resolutions(NGP_LEVELS, 16, 32768))
+GRAD_PATH = (SCAN_PATH[0], GRAD_RES, 19, 2)  # points, resolutions, log2 T, features
+GRAD_EDGE_CASES = ((1001, (4, 9, 31), 10, 1), (777, (4, 9, 31), 10, 4), (5, (31,), 10, 2))
 # The KITTI phase: the fixture of the quality runs, the mip flagship for 4
 # steps with checkpoints at 2 and 4, resumed to 6; NGP for 20 steps.
 KITTI_VIEWS = 30
@@ -499,14 +529,21 @@ PROBE_REPS, PROBE_DISPATCHES, ABLATE_DISPATCHES = 3, 3, 2
 PROBE_EVAL_CHUNKS = (8192, 32768)
 PROBE_MFU_SWEEP = ((1024, 8), (1024, 32), (4096, 8))
 # Errors of the kernels at the shapes that the viewer, public_bench and
-# bench_probes paths launched them at (beyond phase kernels' shapes), by
-# kernel and shape; the kernels line takes them into its max_abs_err.
-PATH_SHAPE_ERRORS = {"K1": {}, "K2a": {}}
+# bench_probes paths launched them at (beyond phase kernels' shapes), and
+# of K3a and K3b at every launch key of any phase, by kernel and shape; the
+# kernels line takes them into its max_abs_err.
+PATH_SHAPE_ERRORS = {"K1": {}, "K2a": {}, "K2b": {}, "K3a": {}, "K3b": {}}
+# Every K3a launch key (points, levels, features) and K3b launch key
+# (`_grad_plan`) of this process and of phase ddp's ranks
+# (`_record_grad_launches`), and those held against the plain version.
+GRAD_LAUNCHED = {"K3a": set(), "K3b": set()}
+GRAD_CHECKED = {"K3a": set(), "K3b": set()}
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
 GATHER_SOURCE = "outdoor_nerf_depth_torch/csrc/chunk_gather.cu"
-KERNEL_IDS = ("K1a", "K1b", "K2a", "K2b", "P1", "P2")
+GRAD_SOURCE = "outdoor_nerf_depth_torch/csrc/hashgrid_grad.cu"
+KERNEL_IDS = ("K1a", "K1b", "K2a", "K2b", "K3a", "K3b", "P1", "P2")
 
 
 def emit(obj):
@@ -613,7 +650,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    sources = [volren_weights.SOURCE, prefix_scan.SOURCE, chunk_gather.SOURCE]
+    sources = [volren_weights.SOURCE, prefix_scan.SOURCE, chunk_gather.SOURCE,
+               hashgrid_grad.SOURCE]
     reports = cuda_build.build(sources)
     seconds = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -737,7 +775,7 @@ def _gather_inputs(gen, queries, high, rows, dtype):
 
 
 def _exact(name, got, want):
-    """Max abs error of a gather kernel against its plain version; must be 0."""
+    """Max abs error of a kernel against its plain version; must be 0."""
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite values")
@@ -745,6 +783,151 @@ def _exact(name, got, want):
     if err != 0.0:
         raise AssertionError(f"{name} differs from its plain version by {err}")
     return err
+
+
+def _grad_plan(points, res, log2_t, n_feats):
+    """A K3b launch key: (points, T, F, the levels' corner offsets, their
+    trimmed row counts), as `_oct_split_table_grad` hands them to K3b."""
+    table_size = 2**log2_t
+    return (points, table_size, n_feats,
+            tuple(tuple(hashgrid._oct_offsets(int(r), table_size)) for r in res),
+            tuple(hashgrid._oct_level_rows(res, table_size)))
+
+
+def _grad_key(plan):
+    """A K3b launch key's name: points, levels, T, F, the rows of the
+    trimmed (dense) levels and the count of whole (hashed) ones."""
+    points, table_size, n_feats, _, rows = plan
+    dense = "-".join(str(r) for r in rows if r < table_size) or "none"
+    return (f"{points}p_L{len(rows)}_T2^{table_size.bit_length() - 1}_F{n_feats}_dense{dense}"
+            f"_hashed{sum(r == table_size for r in rows)}")
+
+
+def _products_key(points, levels, n_feats):
+    """A K3a launch key's name."""
+    return f"{points}p_L{levels}_F{n_feats}"
+
+
+def _grad_stages(gen, plan):
+    """K3a's and K3b's inputs at a launch key, on row ids drawn in each
+    level's rows: (order, w_all, g, csum, ends)."""
+    points, table_size, n_feats, _, rows = plan
+    idx_levels = [torch.randint(0, r, (points,), generator=gen, device="cuda") for r in rows]
+    w_all = torch.rand((points, len(rows), hashgrid_grad.CORNERS), generator=gen, device="cuda")
+    g = torch.randn((points, len(rows), n_feats), generator=gen, device="cuda")
+    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, table_size)
+    csum = prefix_scan.cumsum_batched(hashgrid_grad.sorted_products_plain(order, w_all, g))
+    ends = hashgrid._level_segment_ends(sorted_keys, len(rows), table_size)
+    return order, w_all, g, csum, ends
+
+
+def _check_grad(gen, plan):
+    """K3a and K3b against their plain versions (exact) at a K3b launch
+    key, kept in GRAD_CHECKED: {"K3a": err, "K3b": err}."""
+    points, table_size, n_feats, offsets, rows = plan
+    order, w_all, g, csum, ends = _grad_stages(gen, plan)
+    key = _grad_key(plan)
+    errors = {"K3a": _exact(f"K3a at {_products_key(points, len(rows), n_feats)}",
+                            hashgrid_grad.sorted_products_cuda(order, w_all, g),
+                            hashgrid_grad.sorted_products_plain(order, w_all, g))}
+    fold_args = (csum, ends, offsets, rows, table_size)
+    errors["K3b"] = _exact(f"K3b at {key}", hashgrid_grad.fold_segments_cuda(*fold_args),
+                           hashgrid_grad.fold_segments_plain(*fold_args))
+    GRAD_CHECKED["K3a"].add((points, len(rows), n_feats))
+    GRAD_CHECKED["K3b"].add(plan)
+    return errors
+
+
+def _nonempty_segments(ends, points, rows, table_size):
+    """The segments with entries among the levels' trimmed rows: the
+    prefix-sum rows K3b reads, one at each such segment's end."""
+    ends = ends.reshape(len(rows), table_size)
+    first = torch.arange(len(rows), device=ends.device, dtype=ends.dtype)[:, None] * points
+    prev = torch.cat([first, ends[:, :-1]], dim=1)
+    trimmed = torch.arange(table_size, device=ends.device)[None, :] < torch.tensor(
+        rows, device=ends.device)[:, None]
+    return int(((ends > prev) & trimmed).sum())
+
+
+def _grad_kernels(gen):
+    """K3a and K3b against their plain versions (exact) at the train step's
+    shape and the edge cases, then timed at the step's shape with their
+    plain versions, beside their byte bounds."""
+    errors = {"K3a": {}, "K3b": {}}
+    for case in (GRAD_PATH,) + GRAD_EDGE_CASES:
+        plan = _grad_plan(*case)
+        got = _check_grad(gen, plan)
+        errors["K3a"][_products_key(plan[0], len(plan[4]), plan[2])] = got["K3a"]
+        errors["K3b"][_grad_key(plan)] = got["K3b"]
+    plan = _grad_plan(*GRAD_PATH)
+    points, table_size, n_feats, offsets, rows = plan
+    order, w_all, g, csum, ends = _grad_stages(gen, plan)
+    products, fold_args = (order, w_all, g), (csum, ends, offsets, rows, table_size)
+    sorted_rows, table_rows = len(rows) * points, len(rows) * table_size
+    segments = _nonempty_segments(ends, points, rows, table_size)
+    shape = {"points": points, "levels": len(rows), "table_size": table_size, "features": n_feats}
+    timing = {
+        "K3a": dict(shape, ms=device_ms(lambda: hashgrid_grad.sorted_products_cuda(*products)),
+                    plain_ms=device_ms(lambda: hashgrid_grad.sorted_products_plain(*products)),
+                    bound_ms=1e3 * sorted_rows * (8 + 32 + 4 * n_feats + 32 * n_feats)
+                    / HBM_BYTES_PER_S, bound_by="bytes"),
+        "K3b": dict(shape, ms=device_ms(lambda: hashgrid_grad.fold_segments_cuda(*fold_args)),
+                    plain_ms=device_ms(lambda: hashgrid_grad.fold_segments_plain(*fold_args)),
+                    nonempty_segments=segments, sorted_rows=sorted_rows,
+                    bound_ms=1e3 * (segments * 32 * n_feats + 4 * sum(rows)
+                                    + table_rows * 4 * n_feats) / HBM_BYTES_PER_S,
+                    bound_by="bytes")}
+    return errors, timing
+
+
+def _record_grad_launches():
+    """From now on, record the launch key of every K3a and K3b launch of
+    this process into GRAD_LAUNCHED (the wrappers are called as usual)."""
+    products, fold = hashgrid_grad.sorted_products_cuda, hashgrid_grad.fold_segments_cuda
+
+    def recording_products(order, w_all, g_lf):
+        GRAD_LAUNCHED["K3a"].add(tuple(g_lf.shape))
+        return products(order, w_all, g_lf)
+
+    def recording_fold(csum, ends, offsets, level_rows, table_size):
+        GRAD_LAUNCHED["K3b"].add((csum.shape[1], table_size, csum.shape[2] // hashgrid_grad.CORNERS,
+                                  tuple(tuple(int(o) for o in lv) for lv in offsets),
+                                  tuple(int(r) for r in level_rows)))
+        return fold(csum, ends, offsets, level_rows, table_size)
+
+    hashgrid_grad.sorted_products_cuda = recording_products
+    hashgrid_grad.fold_segments_cuda = recording_fold
+
+
+def _grad_launched_lists():
+    """GRAD_LAUNCHED as JSON lists (a ddp rank hands its keys back)."""
+    return {kid: [list(key) for key in sorted(keys)] for kid, keys in GRAD_LAUNCHED.items()}
+
+
+def _add_grad_launched(lists):
+    """Add a rank's `_grad_launched_lists()` to GRAD_LAUNCHED."""
+    GRAD_LAUNCHED["K3a"].update(tuple(key) for key in lists["K3a"])
+    GRAD_LAUNCHED["K3b"].update(
+        (p, t, f, tuple(tuple(lv) for lv in offsets), tuple(rows))
+        for p, t, f, offsets, rows in lists["K3b"])
+
+
+def _hold_grad_launches():
+    """K3a and K3b held against their plain versions at every K3b launch key
+    recorded so far that no check has covered, K3a at its shape. (Every
+    path launches K3a beside K3b at the same points; the summary fails on
+    a K3a shape left unchecked.) Returns the errors, also kept in
+    PATH_SHAPE_ERRORS."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errors = {"K3a": {}, "K3b": {}}
+    for plan in sorted(GRAD_LAUNCHED["K3b"] - GRAD_CHECKED["K3b"]):
+        got = _check_grad(gen, plan)
+        errors["K3a"][_products_key(plan[0], len(plan[4]), plan[2])] = got["K3a"]
+        errors["K3b"][_grad_key(plan)] = got["K3b"]
+    for kid in errors:
+        PATH_SHAPE_ERRORS[kid].update(errors[kid])
+    torch.cuda.empty_cache()
+    return errors
 
 
 def _gather_kernels(gen):
@@ -866,7 +1049,7 @@ def phase_kernels():
         x = randn(shape)
         key = "x".join(str(d) for d in shape)
         batched_errors[key] = _check_scan_batched(x)
-        if shape == SCAN_BATCHED_PATH:
+        if shape in (SCAN_BATCHED_PATH, OSPLIT_SCAN_PATH):
             plain = device_ms(lambda: prefix_scan.cumsum_batched_plain(x))
             # A device copy moves the same 8 B per element: the memory rate
             # this card reaches in practice, beside the bound's 3.35 TB/s.
@@ -877,6 +1060,8 @@ def phase_kernels():
         del x
     bf16_errors = {"x".join(str(d) for d in shape): _check_scan_bf16(randn(shape))
                    for shape in SCAN_BF16_SHAPES}
+    grad_errors, grad_timing = _grad_kernels(gen)
+    torch.cuda.empty_cache()
     gather_errors, gather_timing = _gather_kernels(gen)
     emit({"phase": "kernels",
           "max_abs_err": {k: {"fwd": f, "bwd": b} for k, (f, b) in errors.items()},
@@ -896,6 +1081,8 @@ def phase_kernels():
           "scan_batched_library": "torch.cumsum(x, dim=1)",
           "scan_bf16_errors": bf16_errors,
           "scan_bf16_tolerance": {"vs_plain_rel_to_running_abs_sum": SCAN_BF16_RTOL},
+          "grad_max_abs_err": grad_errors, "grad_tolerance": 0.0, "grad_timing": grad_timing,
+          "grad_library": None,
           "gather_max_abs_err": gather_errors, "gather_tolerance": 0.0,
           "gather_timing": gather_timing,
           "gather_library": {"P1": "torch.index_select(table, 0, idx)",
@@ -904,6 +1091,7 @@ def phase_kernels():
     return {"errors": errors, "timing": timing, "scan_errors": scan_errors,
             "scan_timing": scan_timing, "batched_errors": batched_errors,
             "batched_timing": batched_timing, "bf16_errors": bf16_errors,
+            "grad_errors": grad_errors, "grad_timing": grad_timing,
             "gather_errors": gather_errors, "gather_timing": gather_timing}
 
 
@@ -935,6 +1123,7 @@ def _only(**counts):
 def _reset_launches():
     volren_weights.reset_launch_counts()
     prefix_scan.reset_launch_counts()
+    hashgrid_grad.reset_launch_counts()
     chunk_gather.reset_launch_counts()
 
 
@@ -1144,26 +1333,33 @@ def _ngp_config(exp_dir):
 
 @contextlib.contextmanager
 def _record_scan_shapes(shapes):
-    """Record the shape of every K2a launch (the wrapper is called as usual)."""
-    launch = prefix_scan.cumsum_cuda
+    """Record the shape of every K2a ([N, lanes]) and K2b ([B, N, lanes])
+    launch (the wrappers are called as usual)."""
+    launches = {name: getattr(prefix_scan, name)
+                for name in ("cumsum_cuda", "cumsum_batched_cuda")}
 
-    def recording(x):
-        shapes.add(tuple(x.shape))
-        return launch(x)
+    def recording(name):
+        def launch(x):
+            shapes.add(tuple(x.shape))
+            return launches[name](x)
+        return launch
 
-    prefix_scan.cumsum_cuda = recording
+    for name in launches:
+        setattr(prefix_scan, name, recording(name))
     try:
         yield
     finally:
-        prefix_scan.cumsum_cuda = launch
+        for name, launch in launches.items():
+            setattr(prefix_scan, name, launch)
 
 
 @contextlib.contextmanager
 def _record_path_shapes(shapes):
-    """Record the shape of every K1a, K1b and K2a launch into `shapes`, a
-    dict of sets by kernel id (the wrappers are called as usual)."""
+    """Record the shape of every K1a, K1b, K2a and K2b launch into `shapes`,
+    a dict of sets by kernel id (the wrappers are called as usual)."""
     wrappers = {"K1a": (volren_weights, "weights_fwd_cuda"),
-                "K1b": (volren_weights, "weights_bwd_cuda"), "K2a": (prefix_scan, "cumsum_cuda")}
+                "K1b": (volren_weights, "weights_bwd_cuda"), "K2a": (prefix_scan, "cumsum_cuda"),
+                "K2b": (prefix_scan, "cumsum_batched_cuda")}
     originals = {kid: getattr(module, name) for kid, (module, name) in wrappers.items()}
 
     def recording(kid):
@@ -1182,13 +1378,14 @@ def _record_path_shapes(shapes):
 
 
 def _hold_path_shapes(shapes):
-    """Each K1 and K2a shape in `shapes` (from `_record_path_shapes`) that
-    phase kernels did not check, held against the plain version on seeded
-    inputs (K1: tau in [0, 2), as phase kernels draws it). Call it after
+    """Each K1, K2a and K2b shape in `shapes` (from `_record_path_shapes`)
+    that phase kernels did not check, held against the plain version on seeded
+    inputs (K1: tau in [0, 2), as phase kernels draws it), and every K3a and
+    K3b launch key not yet checked (`_hold_grad_launches`). Call it after
     the path's launches are read: its own launches are not the path's.
     Returns the shapes and the errors, also kept in PATH_SHAPE_ERRORS."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errors = {"K1": {}, "K2a": {}}
+    errors = {"K1": {}, "K2a": {}, "K2b": {}}
     for shape in sorted(shapes.get("K1a", set()) | shapes.get("K1b", set())):
         if shape not in K1_CHECK_SHAPES:
             tau = 2.0 * torch.rand(shape, generator=gen, device="cuda")
@@ -1198,16 +1395,21 @@ def _hold_path_shapes(shapes):
         if shape not in SCAN_SHAPES:
             errors["K2a"][f"{shape[0]}x{shape[1]}"] = _check_scan(
                 torch.randn(shape, generator=gen, device="cuda"))
+    for shape in sorted(shapes.get("K2b", set())):
+        if shape not in SCAN_BATCHED_SHAPES:
+            errors["K2b"]["x".join(str(d) for d in shape)] = _check_scan_batched(
+                torch.randn(shape, generator=gen, device="cuda"))
     for kid in errors:
         PATH_SHAPE_ERRORS[kid].update(errors[kid])
-    torch.cuda.empty_cache()
+    errors.update(_hold_grad_launches())
     return {"launched_at": {kid: [list(s) for s in sorted(v)] for kid, v in shapes.items()},
             "checked_here": errors}
 
 
 def _ngp_launches(steps):
-    """An NGP train run: 1 K1a and 1 K1b a step, 16 K2a (one a hash level)."""
-    return _only(K1a=steps, K1b=steps, K2a=NGP_LEVELS * steps)
+    """An NGP train run: 1 K1a and 1 K1b a step, and the osplit table
+    gradient's 1 K3a, 1 K2b (all hash levels at once) and 1 K3b."""
+    return _only(K1a=steps, K1b=steps, K2b=steps, K3a=steps, K3b=steps)
 
 
 def _occupied_share(model):
@@ -1233,8 +1435,8 @@ def phase_ngp_train(exp_dir):
     want = _ngp_launches(NGP_STEPS)
     if launches != want:
         raise AssertionError(f"expected {want} launches in {NGP_STEPS} NGP steps, got {launches}")
-    if scan_shapes != {SCAN_PATH}:
-        raise AssertionError(f"K2a ran at {scan_shapes}, expected only {SCAN_PATH}")
+    if scan_shapes != {OSPLIT_SCAN_PATH}:
+        raise AssertionError(f"the scan ran at {scan_shapes}, expected only {OSPLIT_SCAN_PATH}")
     _check_history(history, NGP_STEPS)
     step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
     refresh_steps = set(range(0, NGP_STEPS, config.occupancy_update_every))
@@ -1255,8 +1457,8 @@ def phase_ngp_train(exp_dir):
         if not torch.isfinite(grid).all():
             raise AssertionError(f"non-finite grid after a {kind} refresh")
     model.occupancy.copy_(grid)  # keep the sampled refresh, as the loop would
-    if _launches()["K2a"] != NGP_LEVELS * NGP_STEPS:
-        raise AssertionError("a refresh launched K2a: it should run no backward")
+    if _launches() != launches:
+        raise AssertionError(f"a refresh launched {_launches()}: it should run no backward")
     points = ngp_points(model, config.batch_size)
     step_tflop = 3 * ngp_forward_flops(model, config.batch_size) / 1e12
     emit({"phase": "ngp_train", "config": NGP_CONFIG, "steps": NGP_STEPS,
@@ -1271,7 +1473,7 @@ def phase_ngp_train(exp_dir):
           "rm_s": history[-1]["rm_s"], "vr_s": history[-1]["vr_s"],
           "mlp_tflop_per_step": step_tflop,
           "max_memory_allocated_bytes": peak,
-          "launches": launches, "k2a_shapes": sorted(scan_shapes),
+          "launches": launches, "scan_shapes": sorted(scan_shapes),
           "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
           "grad_norm": history[-1]["grad_norm"]})
     return config, model, launches, step_tflop
@@ -1309,13 +1511,29 @@ def phase_probe_osplit_bwd():
     _check_probe_times("probe_osplit_bwd", results)
     if not results["merged_matches"]:
         raise AssertionError(f"merged row sums disagree: {results['merged_max_abs_diff']}")
+    if not results["one_pass_matches"]:
+        raise AssertionError(f"the one-pass table gradient disagrees with the per-level one: "
+                             f"{results['one_pass_max_abs_diff']} of "
+                             f"{results['table_grad_max_abs']}")
     groups = results["launches"]
-    _per_call("osplit fwd+bwd K2a", groups["osplit_fwd_bwd"], NGP_LEVELS)
+    _per_call("osplit fwd+bwd K2b", groups["osplit_fwd_bwd"], 1)
+    _per_call("one-pass table gradient K2b", groups["table_grad_one_pass"], 1)
+    _per_call("per-level table gradient K2a", groups["table_grad_per_level"], NGP_LEVELS)
     _per_call("one-level K2a", groups["cumsum_kernel_1lvl"], 1)
     _per_call("16 separate K2a", groups["cumsum_kernel_16_separate"], NGP_LEVELS)
     _per_call("batched K2b", groups["cumsum_kernel_batched"], 1)
-    if launches["K2b"] != groups["cumsum_kernel_batched"]["launches"]:
-        raise AssertionError(f"K2b launched outside its timed calls: {launches}")
+    _per_call("K3a alone", groups["products_kernel"], 1)
+    _per_call("K3b alone", groups["fold_kernel"], 1)
+    # Every launch of the three, counted from the probe's code: each call of
+    # the backward or of the one pass launches K3a, K2b and K3b once; beyond
+    # the timed groups, the one-pass agreement check calls the one pass once
+    # and the fold timings' prefix sums take one K2b.
+    one_pass = groups["osplit_fwd_bwd"]["launches"] + groups["table_grad_one_pass"]["launches"] + 1
+    want = {"K2b": one_pass + groups["cumsum_kernel_batched"]["launches"] + 1,
+            "K3a": one_pass + groups["products_kernel"]["launches"],
+            "K3b": one_pass + groups["fold_kernel"]["launches"]}
+    if {kid: launches[kid] for kid in want} != want:
+        raise AssertionError(f"probe_osplit_bwd: launches {launches}, expected {want}")
     emit({"phase": "probe_osplit_bwd", "seconds": seconds, "kernel_launches": launches,
           **results})
     return launches
@@ -1657,8 +1875,8 @@ def phase_bf16_synthetic(train_ms_f32):
         model, history, counted, seconds, peak = _train_phase(
             config, _scene(config, "train", 0), scan_shapes)
     want = _ngp_launches(NGP_STEPS)
-    if counted != want or scan_shapes != {SCAN_PATH}:
-        raise AssertionError(f"bf16 NGP: expected {want} at {SCAN_PATH}, got {counted} at "
+    if counted != want or scan_shapes != {OSPLIT_SCAN_PATH}:
+        raise AssertionError(f"bf16 NGP: expected {want} at {OSPLIT_SCAN_PATH}, got {counted} at "
                              f"{scan_shapes}")
     _check_history(history, NGP_STEPS)
     launches["bf16_ngp"] = counted
@@ -1671,7 +1889,7 @@ def phase_bf16_synthetic(train_ms_f32):
                   "median_step_ms_without_refresh": steady,
                   "rays_per_sec": 1e3 * config.batch_size / steady,
                   "max_memory_allocated_bytes": peak, "launches": counted,
-                  "k2a_shapes": sorted(scan_shapes)}
+                  "scan_shapes": sorted(scan_shapes)}
     # The same bf16 tables and marching; bf16 width-64 matmuls round in
     # another order on the card: 2e-2 on rgb, relative 5e-2 on distances.
     render = _render_check(config, model, ngp_forward_flops, lambda chunks: _only(K1a=chunks),
@@ -2626,16 +2844,20 @@ def phase_lpips():
     return launches
 
 
-def _gate_launches(name, config, model_levels, test_views):
-    """Launches of one gate's train and eval: mip 3 K1a + 3 K1b a step and 3
-    K1a a render chunk; NGP 1 + 1 a step, 16 K2a (one a hash level), 1 K1a a
-    chunk; NeRF++ none."""
+def _gate_launches(name, config, test_views, hash_layout="osplit"):
+    """Launches of one gate's train and eval: mip 3 K1a + 3 K1b a step (one
+    a level) and 3 K1a a render chunk; NGP 1 + 1 a step and 1 K1a a chunk,
+    with the table gradient's 1 K3a, 1 K2b and 1 K3b a step on osplit, 1
+    K2a a step on oct and none on corner; NeRF++ none."""
     steps = config.max_steps
     chunks = test_views * math.ceil(64 * 96 / config.render_chunk_size)
     if name == "mipnerf360":
-        return _only(K1a=model_levels * (steps + chunks), K1b=model_levels * steps)
+        levels = config.model_params["num_levels"]
+        return _only(K1a=levels * (steps + chunks), K1b=levels * steps)
     if name == "ngp":
-        return _only(K1a=steps + chunks, K1b=steps, K2a=model_levels * steps)
+        grad = {"osplit": dict(K2b=steps, K3a=steps, K3b=steps), "oct": dict(K2a=steps),
+                "corner": {}}[hash_layout]
+        return _only(K1a=steps + chunks, K1b=steps, **grad)
     return _only()
 
 
@@ -2648,12 +2870,10 @@ def phase_gate():
     with tempfile.TemporaryDirectory() as root:
         for name, scale, asserted in GATE_RUNS:
             config = quality_gate.gate_config(name, root, scale)
-            # The mip gate's 3 levels; NGP's 16 hash levels (the field's default).
-            levels = config.model_params["num_levels"] if name == "mipnerf360" else NGP_LEVELS
             _reset_launches()
             result, _ = _quiet(quality_gate.run_gate, name, root, scale, "cuda")
             launches[f"gate_{name}"] = _launches()
-            want = _gate_launches(name, config, levels, 2)
+            want = _gate_launches(name, config, 2)
             if launches[f"gate_{name}"] != want:
                 raise AssertionError(f"gate {name}: launches {launches[f'gate_{name}']}, expected {want}")
             m = result["metrics"]
@@ -2701,11 +2921,11 @@ def phase_blender(root):
     if launches != _ngp_launches(BLENDER_STEPS):
         raise AssertionError(f"blender: launches {launches}, expected "
                              f"{_ngp_launches(BLENDER_STEPS)}")
-    # No sample budget: K2a scans every slot of the batch, a shape the
-    # kernel is held at in phase kernels.
-    scan_path = (ngp_points(model, config.batch_size), SCAN_PATH[1])
-    if scan_shapes != {scan_path} or scan_path not in SCAN_SHAPES:
-        raise AssertionError(f"blender: K2a ran at {scan_shapes}, expected only {scan_path}")
+    # No sample budget: K2b scans every slot of the batch at every level, a
+    # shape the kernel is held at in phase kernels.
+    scan_path = (NGP_LEVELS, ngp_points(model, config.batch_size), SCAN_PATH[1])
+    if scan_shapes != {scan_path} or scan_path not in SCAN_BATCHED_SHAPES:
+        raise AssertionError(f"blender: the scan ran at {scan_shapes}, expected only {scan_path}")
     _check_history(history, BLENDER_STEPS)
     step_ms = [1e3 * config.batch_size / e["rays_per_sec"] for e in history]
     refresh = set(range(0, BLENDER_STEPS, config.occupancy_update_every))
@@ -2740,7 +2960,7 @@ def phase_blender(root):
           "train_psnr_last": history[-1]["psnr"],
           "occupied_share": _occupied_share(model),
           "max_memory_allocated_bytes": peak, "launches": launches,
-          "k2a_shapes": sorted(scan_shapes),
+          "scan_shapes": sorted(scan_shapes),
           "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
           "eval": {"views": len(per_image), "seconds": eval_seconds,
                    "launches": eval_launches, "psnr": mean["psnr"], "ssim": mean["ssim"],
@@ -2756,9 +2976,10 @@ def phase_public_bench(root):
     the Blender layout phase blender wrote, as a one-scene suite: NGP in
     bf16 at the suite's batch 16384, 8 steps a dispatch, for PUBLIC_STEPS
     steps, then its test views; the summary's metrics, ms a step from the
-    loop's log lines and the launches (1 K1a, 1 K1b and 16 K2a a step, 1
-    K1a a render chunk); the kernels' shapes on that run held against the
-    plain version after it."""
+    loop's log lines and the launches (1 K1a, 1 K1b, 1 K3a, 1 K2b and 1 K3b
+    a step, 1 K1a a render chunk); the kernels' shapes on that run held
+    against the plain version after it (K3a and K3b at their launch keys,
+    `_hold_grad_launches`)."""
     summary_path = os.path.join(root, "public_bench.json")
     argv = ["synthetic_nerf", f"root={root}", "scenes=blender", f"steps={PUBLIC_STEPS}",
             f"out={summary_path}", f"exp_dir={os.path.join(root, 'public_exp')}",
@@ -2777,12 +2998,13 @@ def phase_public_bench(root):
     seconds = time.perf_counter() - t0
     counted = _launches()
     chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
-    expect = _only(K1a=PUBLIC_STEPS + chunks, K1b=PUBLIC_STEPS, K2a=NGP_LEVELS * PUBLIC_STEPS)
+    expect = dict(_ngp_launches(PUBLIC_STEPS), K1a=PUBLIC_STEPS + chunks)
     if counted != expect:
         raise AssertionError(f"public_bench: launches {counted}, expected {expect}")
-    scan_path = (config.batch_size * config.model_params["max_samples"], SCAN_PATH[1])
-    if shapes["K2a"] != {scan_path} or scan_path not in SCAN_SHAPES:
-        raise AssertionError(f"public_bench: K2a ran at {shapes['K2a']}, expected only "
+    scan_path = (NGP_LEVELS, config.batch_size * config.model_params["max_samples"],
+                 SCAN_PATH[1])
+    if shapes["K2b"] != {scan_path} or scan_path not in SCAN_BATCHED_SHAPES:
+        raise AssertionError(f"public_bench: K2b ran at {shapes['K2b']}, expected only "
                              f"{scan_path}")
     path_shapes = _hold_path_shapes(shapes)
     logged = [e for e in (json.loads(line) for line in printed.splitlines()
@@ -2819,8 +3041,8 @@ def _probe_record(label, result, expect):
 
 
 def phase_bench_probes():
-    """Every bench probe once at full width: ngp_step (1 K1a, 1 K1b and 16
-    K2a a step), ngp_bwd (one K2a a call of the scan, the bf16 and factored
+    """Every bench probe once at full width: ngp_step (1 K1a, 1 K1b, 1 K3a,
+    1 K2b and 1 K3b a step), ngp_bwd (one K2a a call of the scan, the bf16 and factored
     variants and the whole backward, none elsewhere), ngp_eval (K1a only on
     the dense renderer, one a call), and the NeRF++ probes (no kernel). The
     shapes that each NGP probe launched its kernels at are held against the
@@ -2835,7 +3057,7 @@ def phase_bench_probes():
     launches["bench_probes_ngp_step"] = _probe_record(
         "ngp_step", dict(result, seconds_with_setup=time.perf_counter() - t0,
                          path_shapes=_hold_path_shapes(shapes)),
-        _only(K1a=steps, K1b=steps, K2a=NGP_LEVELS * steps))
+        _ngp_launches(steps))
     torch.cuda.empty_cache()
 
     shapes = {}
@@ -2973,7 +3195,7 @@ def phase_cameras(root):
 
 def phase_depth_losses(root):
     """mip, NGP and NeRF++ at full width on the kitti fixture under the mse,
-    urf and nll depth losses: finite losses, K1 and K2a launches per step,
+    urf and nll depth losses: finite losses, the kernels' launches per step,
     and each loss's median step ms beside mse's."""
     out = {"phase": "depth_losses", "runs": {}}
     launches = {}
@@ -3103,13 +3325,14 @@ def _layout_gate(root, layout):
     finally:
         quality_gate.GATES = gates
     launches = _launches()
-    want = _gate_launches("ngp", config, 1 if layout == "oct" else 0, 2)
+    want = _gate_launches("ngp", config, 2, layout)
     want_shapes = {OCT_SCAN_PATH} if layout == "oct" else set()
     if launches != want or shapes != want_shapes:
         raise AssertionError(f"gate {layout}: launches {launches} at {shapes}, expected {want}")
     if not result["passed"]:
         raise AssertionError(f"gate {layout} fails {result['thresholds']}: {result['metrics']}")
-    return dict(result, hash_layout=layout, launches=launches, k2a_shapes=sorted(shapes)), launches
+    return (dict(result, hash_layout=layout, launches=launches, scan_shapes=sorted(shapes)),
+            launches)
 
 
 def phase_ngp_layouts(root):
@@ -3148,7 +3371,7 @@ def phase_ngp_layouts(root):
             "seconds": seconds, "step_ms": step_ms, "median_step_ms_without_refresh": steady,
             "rays_per_sec": 1e3 * config.batch_size / steady,
             "max_memory_allocated_bytes": peak, "launches": run_launches,
-            "k2a_shapes": sorted(shapes), "card_vs_cpu": check,
+            "scan_shapes": sorted(shapes), "card_vs_cpu": check,
             "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
             "test_psnr": mean["psnr"], "test_rmse": mean["rmse"],
             "test_ssim": mean["ssim"]}
@@ -3713,6 +3936,8 @@ def phase_ddp(smi):
         t0 = time.perf_counter()
         ranks = _ddp_spawn("gloo", 2, workdir)
         gloo_seconds = time.perf_counter() - t0
+        for rank in [nccl] + ranks:
+            _add_grad_launched(rank["grad_launched"])
 
         gloo, checks = {}, {}
         for label, per_step in (("mip", _only(K1a=3, K1b=3)),
@@ -3783,8 +4008,11 @@ def _timed_summary(timed):
 
 
 def ddp_worker(part, workdir):
-    """A rank of phase ddp (launched by `_ddp_spawn` through torchrun)."""
+    """A rank of phase ddp (launched by `_ddp_spawn` through torchrun), with
+    the K3a and K3b launch keys it ran at, for the parent to check."""
+    _record_grad_launches()
     out = {"nccl": _ddp_worker_nccl, "gloo": _ddp_worker_gloo}[part](workdir)
+    out["grad_launched"] = _grad_launched_lists()
     with open(os.path.join(workdir, f"{part}_rank{os.environ['RANK']}.json"), "w") as f:
         json.dump(out, f)
 
@@ -3795,6 +4023,7 @@ def summary(k, launches):
     errors = dict(k["errors"], **{s: (e["fwd"], e["bwd"])
                                   for s, e in PATH_SHAPE_ERRORS["K1"].items()})
     scan_errors = dict(k["scan_errors"], **PATH_SHAPE_ERRORS["K2a"])
+    batched_errors = dict(k["batched_errors"], **PATH_SHAPE_ERRORS["K2b"])
 
     def per_step(key, shapes):
         return sum(timing[f"{r}x{s}"][key] for r, s in shapes)
@@ -3833,7 +4062,6 @@ def summary(k, launches):
                            "renders of the mip and NGP checkpoints (phase viewer), the public-"
                            "dataset runner's NGP training and eval (phase public_bench), and the "
                            "NGP bench probes' steps and renders (phase bench_probes)"}
-    path = f"{SCAN_PATH[0]}x{SCAN_PATH[1]}"
     oct_path = f"{OCT_SCAN_PATH[0]}x{OCT_SCAN_PATH[1]}"
     kernels = [
         dict(k1, name="K1a volren_weights_fwd", redesigned="PR 4",
@@ -3861,47 +4089,54 @@ def summary(k, launches):
         {"name": "K2a prefix_scan", "route": "cuda", "source": SCAN_SOURCE, "redesigned": "PR 5",
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:64",
          "launches": on_path("K2a"), "launches_by_phase": by_phase("K2a"),
-         "launches_note": "NGP train runs on the synthetic scene and the KITTI fixture, "
-                          "float32 and bf16, the NGP quality gate (phase gate), NGP under the "
-                          "mse, urf and nll depth losses (phase depth_losses), on the "
-                          "Blender layout (phase blender), NGP under its own loss and rawnerf's "
-                          "(phase mip_options), the oct layout's one scan a step "
-                          "and osplit's HDR field with extrinsics refinement (phase "
-                          "ngp_layouts), NGP as a rank of a process group (phase ddp: "
-                          "16 a step on each rank), the public-dataset runner's training "
-                          "(phase public_bench), and the NGP bench step and the oct "
-                          "gradient's stages (phase bench_probes)",
-         "max_abs_err": scan_errors[path]["kernel_vs_plain_abs"],
+         "launches_note": "the oct layout's one scan a step over all levels (phase ngp_layouts: "
+                          "its train run and its quality gate) and the oct gradient's stages "
+                          "(phase bench_probes); the osplit layout runs K2b",
+         "max_abs_err": scan_errors[oct_path]["kernel_vs_plain_abs"],
          "bf16_max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
                                                     for e in k["bf16_errors"].values()),
          "checked_shapes": sorted(scan_errors),
          "max_abs_err_all_shapes": max(e["kernel_vs_plain_abs"] for e in scan_errors.values()),
          "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"] for e in scan_errors.values()),
          "run_to_run_max_abs": max(e["run_to_run_abs"] for e in scan_errors.values()),
-         "work": f"one NGP train step: {NGP_LEVELS} x [{SCAN_PATH[0]}, {SCAN_PATH[1]}] float32",
-         "ms": NGP_LEVELS * scan_timing[path]["ms"],
-         "plain_ms": NGP_LEVELS * scan_timing[path]["plain_ms"],
-         "bound_ms": NGP_LEVELS * scan_timing[path]["bound_ms"], "bound_by": "bytes",
-         "library_ms": NGP_LEVELS * scan_timing[path]["library_ms"],
-         "oct_step": dict(scan_timing[oct_path], shape=list(OCT_SCAN_PATH), bound_by="bytes",
-                          launches=sum(counts["K2a"] for p, counts in launches.items()
-                                       if p.startswith("ngp_layouts_oct"))),
-         "per_call": scan_timing},
+         "work": f"one oct NGP train step: [{OCT_SCAN_PATH[0]}, {OCT_SCAN_PATH[1]}] float32",
+         **{key: scan_timing[oct_path][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                        "library_ms")},
+         "bound_by": "bytes", "per_call": scan_timing},
     ]
     batched = "x".join(str(d) for d in SCAN_BATCHED_PATH)
-    bt = k["batched_timing"][batched]
+    osplit = "x".join(str(d) for d in OSPLIT_SCAN_PATH)
+    bt = k["batched_timing"]
     kernels.append(
         {"name": "K2b prefix_scan_batched", "route": "cuda", "source": SCAN_SOURCE,
          "redesigned": "PR 5",
          "replaces": "outdoor_nerf_depth_tpu/ops/pallas_scan.py:117",
-         "launches": launches["probe_osplit_bwd"]["K2b"], "launches_by_phase": by_phase("K2b"),
-         "max_abs_err": k["batched_errors"][batched]["kernel_vs_plain_abs"],
+         "launches": on_path("K2b"), "launches_by_phase": by_phase("K2b"),
+         "launches_note": "NGP train runs on the osplit layout (the default): one a step over "
+                          "all hash levels, per rank; the osplit probe's batched calls",
+         "max_abs_err": batched_errors[osplit]["kernel_vs_plain_abs"],
+         "checked_shapes": sorted(batched_errors),
          "max_err_rel_to_running_abs_sum": max(e["kernel_vs_plain"]
-                                               for e in k["batched_errors"].values()),
-         "run_to_run_max_abs": max(e["run_to_run_abs"] for e in k["batched_errors"].values()),
-         "work": f"one call at {list(SCAN_BATCHED_PATH)} float32",
-         "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
-         "bound_by": "bytes", "library_ms": bt["library_ms"], "copy_ms": bt["copy_ms"]})
+                                               for e in batched_errors.values()),
+         "run_to_run_max_abs": max(e["run_to_run_abs"] for e in batched_errors.values()),
+         "work": f"one osplit NGP train step: {list(OSPLIT_SCAN_PATH)} float32",
+         **{key: bt[osplit][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                             "copy_ms")},
+         "bound_by": "bytes", "probe_call": dict(bt[batched], shape=list(SCAN_BATCHED_PATH))})
+    grad_work = (f"one osplit NGP train step: {GRAD_PATH[0]} points, {len(GRAD_PATH[1])} levels, "
+                 f"T 2^{GRAD_PATH[2]}, F {GRAD_PATH[3]}")
+    unchecked = {kid: GRAD_LAUNCHED[kid] - GRAD_CHECKED[kid] for kid in GRAD_LAUNCHED}
+    if any(unchecked.values()):
+        raise AssertionError(f"K3 launched at keys no check covered: {unchecked}")
+    for kid, name in (("K3a", "K3a osplit_grad_products"), ("K3b", "K3b osplit_grad_fold")):
+        grad_errors = dict(k["grad_errors"][kid], **PATH_SHAPE_ERRORS[kid])
+        kernels.append(dict(
+            k["grad_timing"][kid], name=name, route="cuda", source=GRAD_SOURCE,
+            replaces=None, replaces_note="no TPU kernel: the per-level ops of the reference's "
+                                         "`ops/hashgrid.py:_oct_split_grad_encode`",
+            launches=on_path(kid), launches_by_phase=by_phase(kid), library_ms=None,
+            max_abs_err=max(grad_errors.values()), checked_shapes=sorted(grad_errors),
+            work=grad_work))
     for kid, name, line, extra in (("P1", "P1 chunk_take", 111, {}),
                                    ("P2", "P2 onehot_extract", 158, {"redesigned": "PR 4"})):
         # Timing keys (ms, plain_ms, library_ms, bound_ms, bound_by) and shape.
@@ -3917,6 +4152,7 @@ def main():
     if sys.argv[1:2] == ["--ddp-worker"]:
         ddp_worker(*sys.argv[2:4])
         return
+    _record_grad_launches()
     smi = phase_device()
     phase_build()
     k = phase_kernels()
@@ -3961,6 +4197,7 @@ def main():
         launches.update(phase_public_bench(root))
     launches.update(phase_bench_probes())
     launches.update(phase_ddp(smi))
+    _hold_grad_launches()
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,10 +6,11 @@
 // `ops/pallas_scan.py`:
 //
 //   K2b  `_scan_kernel_batched` (public op `cumsum_batched`), the 16 hash
-//        levels' scans in one launch, which the osplit backward probe times;
+//        levels' scans in one launch: the osplit hash-table gradient runs it
+//        once a step on the [16, samples, 8F] value streams sorted by row;
 //   K2a  `_scan_kernel` (public op `cumsum`), [rows, lanes] along axis 0, as
-//        batch = 1: the Instant-NGP hash-table gradient runs it once per
-//        level on the [samples, 8F] value stream sorted by table row.
+//        batch = 1: the oct layout's hash-table gradient runs it once a step
+//        on all levels' [levels x samples, 8F] value stream.
 //
 // The TPU kernel folds 128/lanes rows into one 128-lane row and threads the
 // carry through its sequential grid. Blocks on the card run in parallel and

@@ -27,23 +27,30 @@ sorted-segment table gradient on every device; "scatter" differentiates the
 gathers with autograd (an accumulating index_put), as does `pack_rows`.
 The sorted gradients:
 
-- osplit, per level: each product w*g rounded to bf16, sorted by physical
-  row and prefix-summed in f32 by CUDA kernel K2a (`ops/prefix_scan.py`);
-  each row's sum is the difference of the prefix sums at its segment's
-  ends. This is the reference's default pipeline; its environment switches
-  (an f32 gather, the one-sort "merged" pipeline) are not read here, and
-  only the osplit backward probe calls `_oct_split_row_sums_merged`.
+- osplit: each product w*g rounded to bf16, sorted by physical row within
+  its level and prefix-summed in f32 level by level; each row's sum is the
+  difference of the prefix sums at its segment's ends. This is the
+  reference's default pipeline, computed in one pass over all levels: one
+  sort of the level-offset row ids, the sorted products by CUDA kernel K3a
+  (`ops/hashgrid_grad.py`), one launch of the batched scan K2b
+  (`ops/prefix_scan.py`), the segment ends by one `searchsorted`, and the
+  differences folded back onto the canonical table by K3b. The reference's
+  environment switches (an f32 gather, the one-sort "merged" pipeline) are
+  not read here. The per-level pipeline the one pass replaced
+  (`_oct_split_table_grad_per_level`: `_oct_split_row_sums`, K2a on the
+  GPU, and `_fold` a level) and `_oct_split_row_sums_merged` serve the
+  osplit backward probe and the tests.
 - oct: the same in one pass over all levels, [points x L, 8F] in f32 (one
   K2a launch).
 - corner and quad: the reference's sentinel pipeline over the canonical
   (corner) or quad rows, scanned with torch.cumsum as the reference scans
   with jnp.cumsum.
 
-Rolls fold the physical-row sums back onto the canonical table. The
-position gradient is the analytic derivative of the trilinear weights. The
-encoding computes in f32 and returns its features in the module's
-`compute_dtype`, as the reference does; a bf16 cotangent is cast back to
-f32 before the table gradient.
+Rolls fold the physical-row sums back onto the canonical table (`_fold`;
+K3b folds the osplit one pass's). The position gradient is the analytic
+derivative of the trilinear weights. The encoding computes in f32 and
+returns its features in the module's `compute_dtype`, as the reference
+does; a bf16 cotangent is cast back to f32 before the table gradient.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from outdoor_nerf_depth_torch.ops import mathx, prefix_scan
+from outdoor_nerf_depth_torch.ops import hashgrid_grad, mathx, prefix_scan
+from outdoor_nerf_depth_torch.utils import tracing
 
 # Large primes of the Instant-NGP spatial hash (x uses stride 1).
 _PRIMES = (1, 2_654_435_761, 805_459_861)
@@ -390,6 +398,22 @@ def _oct_split_row_sums(idx: torch.Tensor, vals: torch.Tensor, n_rows: int) -> t
     return _segment_sums(sorted_idx, prefix_scan.cumsum(vals), n_rows)
 
 
+def _oct_split_table_grad_per_level(idx_levels, w_all: torch.Tensor, g_lf: torch.Tensor,
+                                    resolutions, table_size: int) -> torch.Tensor:
+    """The osplit table gradient level by level, as the backward ran it
+    before its one pass: a sort, bf16 products, a scan (K2a on the GPU) and
+    a roll fold a level. The osplit backward probe times it and the tests
+    hold the one pass against it."""
+    n_feats = g_lf.shape[-1]
+    level_rows = _oct_level_rows(resolutions, table_size)
+    return torch.stack([
+        _fold(_oct_split_row_sums(
+            idx_levels[level].reshape(-1),
+            (w_all[..., level, :, None] * g_lf[..., level, None, :]).reshape(-1, 8 * n_feats),
+            level_rows[level]), _oct_offsets(res, table_size), table_size, n_feats)
+        for level, res in enumerate(resolutions)])
+
+
 def _oct_split_row_sums_merged(idx: torch.Tensor, vals: torch.Tensor,
                                n_rows: int) -> torch.Tensor:
     """The same row sums by the reference's "merged" pipeline: one sort
@@ -436,6 +460,47 @@ def _oct_table_grad(idx: torch.Tensor, w_all: torch.Tensor, g_lf: torch.Tensor, 
     return _fold_oct_levels(seg, resolutions, table_size, g_lf.shape[-1])
 
 
+def _sorted_level_keys(idx_levels, table_size: int):
+    """(sorted keys, order) of all levels' row ids offset by l T: level l's P
+    entries fill positions l P to (l + 1) P of one sort, by physical row.
+    The keys are int32, half the radix passes of int64; the level offsets
+    are made on the device."""
+    n_levels = len(idx_levels)
+    if n_levels * table_size > torch.iinfo(torch.int32).max:
+        raise ValueError(f"{n_levels} levels of {table_size} rows overflow the int32 sort keys")
+    keys = torch.stack([i.reshape(-1) for i in idx_levels]).to(torch.int32)
+    keys += torch.arange(0, n_levels * table_size, table_size, dtype=torch.int32,
+                         device=keys.device)[:, None]
+    return torch.sort(keys.reshape(-1))
+
+
+def _level_segment_ends(sorted_keys: torch.Tensor, n_levels: int, table_size: int):
+    """int32 [L T]: the count of sorted keys at or below each level-offset
+    row, a flat position from which level l's entries start at l P."""
+    rows = torch.arange(n_levels * table_size, dtype=torch.int32, device=sorted_keys.device)
+    return torch.searchsorted(sorted_keys, rows, right=True, out_int32=True)
+
+
+def _oct_split_table_grad(idx_levels, w_all: torch.Tensor, g_lf: torch.Tensor, resolutions,
+                          table_size: int) -> torch.Tensor:
+    """The osplit table gradient [L, T, F] in one pass over all levels: one
+    sort of the level-offset row ids, their bf16-rounded products in that
+    order by K3a ([L, P, 8F]), each level's prefix sums by one K2b launch,
+    the segment ends by one `searchsorted`, and the row sums folded back
+    onto the canonical rows by K3b, which takes the levels' corner offsets
+    and row counts by value: nothing waits for the device."""
+    n_levels, n_feats = g_lf.shape[-2:]
+    sorted_keys, order = _sorted_level_keys(idx_levels, table_size)
+    vals = hashgrid_grad.sorted_products(order, w_all.reshape(-1, n_levels, 8),
+                                         g_lf.reshape(-1, n_levels, n_feats))
+    csum = prefix_scan.cumsum_batched(vals)
+    ends = _level_segment_ends(sorted_keys, n_levels, table_size)
+    offsets = [_oct_offsets(res, table_size) for res in resolutions]
+    tracing.count("hashgrid.grad_levels", n_levels)
+    return hashgrid_grad.fold_segments(csum, ends, offsets,
+                                       _oct_level_rows(resolutions, table_size), table_size)
+
+
 def _trilinear_dx(x: torch.Tensor, resolutions, s: torch.Tensor) -> torch.Tensor:
     """dL/dx from per-corner sums s [..., L, 8] in lane order:
     dw/dx_d = res sign_d prod_{d' != d} f_d'."""
@@ -467,7 +532,8 @@ def _cotangent(g: torch.Tensor, n_levels: int, n_feats: int) -> torch.Tensor:
 
 
 class OctSplitEncode(torch.autograd.Function):
-    """encode_oct_split with the per-level sorted-segment table gradient (16 K2a)."""
+    """encode_oct_split with the sorted-segment table gradient over all
+    levels in one pass (one sort, K3a, one K2b launch, K3b)."""
 
     @staticmethod
     def forward(ctx, x, table, resolutions, table_size):
@@ -486,16 +552,11 @@ class OctSplitEncode(torch.autograd.Function):
         n_levels, _, n_feats = ctx.table_shape
         idx_levels, rows = saved[:n_levels], saved[n_levels:]
         g_lf = _cotangent(g, n_levels, n_feats)
-        level_rows = _oct_level_rows(resolutions, table_size)
-        canon = []
-        for level, res in enumerate(resolutions):
-            vals = (w_all[..., level, :, None] * g_lf[..., level, None, :]).reshape(-1, 8 * n_feats)
-            seg = _oct_split_row_sums(idx_levels[level].reshape(-1), vals, level_rows[level])
-            canon.append(_fold(seg, _oct_offsets(res, table_size), table_size, n_feats))
+        canon = _oct_split_table_grad(idx_levels, w_all, g_lf, resolutions, table_size)
         dx = None
         if ctx.needs_input_grad[0]:
             dx = _trilinear_dx(x, resolutions, _corner_sums(g_lf, _level_feats(rows, n_feats)))
-        return dx, torch.stack(canon), None, None
+        return dx, canon, None, None
 
 
 class OctEncode(torch.autograd.Function):

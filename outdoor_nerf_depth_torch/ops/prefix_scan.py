@@ -2,11 +2,14 @@
 
 K2a (`cumsum`, [N, lanes] along axis 0) replaces the reference package's
 Pallas kernel `_scan_kernel` in `ops/pallas_scan.py` (public op `cumsum`),
-the scan inside the Instant-NGP hash-table gradient
-(`ops/hashgrid.py:_oct_split_row_sums`). K2b (`cumsum_batched`,
+the scan inside the Instant-NGP hash-table gradient: the oct layout's one
+scan over all levels (`ops/hashgrid.py:_oct_table_grad`) and the per-level
+`_oct_split_row_sums` of the osplit backward probe. K2b (`cumsum_batched`,
 [B, N, lanes] along axis 1, the carry reset at each batch element) replaces
-`_scan_kernel_batched` (public op `cumsum_batched`), which the osplit
-backward probe (`probes/osplit_bwd.py`) times against 16 separate scans.
+`_scan_kernel_batched` (public op `cumsum_batched`): the osplit layout's
+table gradient scans all its levels with it in one launch
+(`ops/hashgrid.py:_oct_split_table_grad`), and the osplit backward probe
+(`probes/osplit_bwd.py`) times it against 16 separate scans.
 Both are one kernel, `csrc/prefix_scan.cu`: a single-pass scan with
 decoupled look-back, K2a being its batch of 1 (see the note there). Its
 f32 carries are summed in an order that depends on timing, so two calls on

@@ -30,7 +30,7 @@ import time
 
 import torch
 
-from outdoor_nerf_depth_torch.ops import chunk_gather, prefix_scan, volren_weights
+from outdoor_nerf_depth_torch.ops import chunk_gather, hashgrid_grad, prefix_scan, volren_weights
 
 TIMING_METHOD = ("host clock around one call, the device synchronized before and after it; "
                  "median of `reps` calls after one untimed call")
@@ -65,6 +65,7 @@ def kernel_launches() -> dict:
     """The port's kernel launches so far in this process, by kernel id."""
     return {"K1a": volren_weights.FWD_LAUNCHES, "K1b": volren_weights.BWD_LAUNCHES,
             "K2a": prefix_scan.LAUNCHES, "K2b": prefix_scan.BATCHED_LAUNCHES,
+            "K3a": hashgrid_grad.PRODUCT_LAUNCHES, "K3b": hashgrid_grad.FOLD_LAUNCHES,
             "P1": chunk_gather.TAKE_LAUNCHES, "P2": chunk_gather.ONEHOT_LAUNCHES}
 
 

@@ -5,7 +5,14 @@ shape (8192 rays x 64 samples = 524,288 points, L 16, F 2, T 2^19,
 resolutions 16 to 2048) it times:
 
 - the osplit encode forward and forward + backward through `OctSplitEncode`
-  (16 K2a launches per backward);
+  (one K3a, one K2b and one K3b launch per backward);
+- the table gradient alone, in one pass over all levels as the backward
+  runs it (`table_grad_one_pass_s`, one K2b launch a call) against the
+  per-level pipeline it replaced (`table_grad_per_level_s`: a sort, K2a and
+  a roll fold a level, 16 K2a launches a call), and the one pass's stages:
+  the one int32 sort of the level-offset keys (beside the same sort on
+  int64 keys), K3a and K3b beside their plain versions, the segment ends;
+  the two pipelines must agree (`one_pass_matches`);
 - per-level stages at the last (hashed) level: the data sort, the value
   gather (bf16, as the backward gathers), the prefix scan as `torch.cumsum`
   and as K2a, the reference's two sentinel sorts and the port's
@@ -31,7 +38,7 @@ import sys
 
 import torch
 
-from outdoor_nerf_depth_torch.ops import hashgrid, prefix_scan
+from outdoor_nerf_depth_torch.ops import hashgrid, hashgrid_grad, prefix_scan
 from outdoor_nerf_depth_torch.probes import TIMING_METHOD, timed_launches, timeit
 from outdoor_nerf_depth_torch.train.loop import resolve_device
 
@@ -46,6 +53,14 @@ def _k2a():
 
 def _k2b():
     return prefix_scan.BATCHED_LAUNCHES
+
+
+def _k3a():
+    return hashgrid_grad.PRODUCT_LAUNCHES
+
+
+def _k3b():
+    return hashgrid_grad.FOLD_LAUNCHES
 
 
 def _sentinel_bounds(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -86,11 +101,52 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
         return torch.autograd.grad((out * g).sum(), (xg, tg))
 
     results["osplit_fwd_bwd_s"], launches["osplit_fwd_bwd"] = timed_launches(
-        fwd_bwd, dev, reps, _k2a)
+        fwd_bwd, dev, reps, _k2b)
+
+    # ---- The table gradient alone: one pass against the per-level pipeline.
+    with torch.no_grad():
+        idx_levels, w_all = hashgrid._oct_local_indices_weights(x, res, table_size)
+    g_lf = g.reshape(m, LEVELS, FEATURES)
+
+    def per_level():
+        return hashgrid._oct_split_table_grad_per_level(idx_levels, w_all, g_lf, res, table_size)
+
+    def one_pass():
+        return hashgrid._oct_split_table_grad(idx_levels, w_all, g_lf, res, table_size)
+
+    results["table_grad_one_pass_s"], launches["table_grad_one_pass"] = timed_launches(
+        one_pass, dev, reps, _k2b)
+    results["table_grad_per_level_s"], launches["table_grad_per_level"] = timed_launches(
+        per_level, dev, reps, _k2a)
+    got, want = one_pass(), per_level()
+    results["one_pass_max_abs_diff"] = float((got - want).abs().max())
+    results["table_grad_max_abs"] = float(want.abs().max())
+    # Two f32 orders of the same bf16 products' prefix sums (1e-4 of the
+    # largest entry, as the card tests hold them).
+    results["one_pass_matches"] = results["one_pass_max_abs_diff"] <= 1e-4 * max(
+        results["table_grad_max_abs"], 1e-30)
+    keys = torch.stack([i.reshape(-1) for i in idx_levels]) + torch.arange(
+        0, LEVELS * table_size, table_size, device=dev)[:, None]
+    results["sort_level_keys_int64_s"] = t(lambda: torch.sort(keys.reshape(-1)))
+    results["sort_level_keys_int32_s"] = t(
+        lambda: hashgrid._sorted_level_keys(idx_levels, table_size))
+    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, table_size)
+    results["products_kernel_s"], launches["products_kernel"] = timed_launches(
+        lambda: hashgrid_grad.sorted_products(order, w_all, g_lf), dev, reps, _k3a)
+    results["products_plain_s"] = t(
+        lambda: hashgrid_grad.sorted_products_plain(order, w_all, g_lf))
+    csum = prefix_scan.cumsum_batched(hashgrid_grad.sorted_products_plain(order, w_all, g_lf))
+    results["segment_ends_s"] = t(
+        lambda: hashgrid._level_segment_ends(sorted_keys, LEVELS, table_size))
+    ends = hashgrid._level_segment_ends(sorted_keys, LEVELS, table_size)
+    offsets = [hashgrid._oct_offsets(r, table_size) for r in res]
+    fold_args = (csum, ends, offsets, level_rows, table_size)
+    results["fold_kernel_s"], launches["fold_kernel"] = timed_launches(
+        lambda: hashgrid_grad.fold_segments(*fold_args), dev, reps, _k3b)
+    results["fold_plain_s"] = t(lambda: hashgrid_grad.fold_segments_plain(*fold_args))
+    del got, want, csum, ends, keys
 
     # ---- Per-level stages at the last level (hashed: rows == T).
-    with torch.no_grad():
-        idx_levels, _ = hashgrid._oct_local_indices_weights(x, res, table_size)
     level = LEVELS - 1
     idx = idx_levels[level].reshape(-1)
     n_rows = level_rows[level]
@@ -145,6 +201,9 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
                                                "(cumsum_plain_1lvl_s - cumsum_kernel_1lvl_s)",
         "cumsum": "plain = torch.cumsum in f32; kernel = K2a per level, K2b batched "
                   "(on the CPU both are the plain version)",
+        "table_grad": "one pass = the backward's table gradient (one sort, K3a, one K2b, "
+                      "searchsorted, K3b); per level = a sort, bf16 products, K2a and a roll "
+                      "fold a level (on the CPU both take the plain versions)",
         "sorts": "torch.sort; its indices stand for the reference's iota sort operand",
         "value_gathers": "from bf16 values, as the backward gathers them",
     }

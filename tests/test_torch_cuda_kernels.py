@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import chunk_gather, hashgrid, prefix_scan, volren_weights
+from outdoor_nerf_depth_torch.ops import (chunk_gather, hashgrid, hashgrid_grad, prefix_scan,
+                                         volren_weights)
+from outdoor_nerf_depth_torch.utils import tracing
 
 # Forward: one f32 prefix sum in another order; backward: a suffix sum of
 # products on top of it.
@@ -148,7 +150,7 @@ def test_oct_sorted_gradient_matches_its_scatter_gradient(cuda_device):
     assert float((sorted_enc.table.grad - want).abs().max()) <= atol
 
 
-def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
+def test_hashgrid_backward_launches_one_batched_scan(cuda_device):
     gen = torch.Generator().manual_seed(0)
     enc = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,
                                     base_resolution=4, max_resolution=64, generator=gen)
@@ -156,8 +158,10 @@ def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
     g = torch.randn((4096, 8), generator=gen)
     enc_gpu = enc.to(cuda_device)
     prefix_scan.reset_launch_counts()
+    hashgrid_grad.reset_launch_counts()
     (enc_gpu(x.to(cuda_device)) * g.to(cuda_device)).sum().backward()
-    assert prefix_scan.LAUNCHES == 4
+    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 1)
+    assert (hashgrid_grad.PRODUCT_LAUNCHES, hashgrid_grad.FOLD_LAUNCHES) == (1, 1)
     grad_gpu = enc_gpu.table.grad.cpu()
     enc_cpu = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,
                                         base_resolution=4, max_resolution=64)
@@ -167,6 +171,124 @@ def test_hashgrid_backward_launches_the_scan_once_per_level(cuda_device):
     # Row sums are differences of f32 prefix sums over up to 4096 products
     # of |w g| <= 4: their rounding scales with the prefix, ~1e-3 at most.
     torch.testing.assert_close(grad_gpu, enc_cpu.table.grad, atol=1e-3, rtol=1e-4)
+
+
+# The osplit table gradient where the NGP train cell runs it once a step:
+# 8192 rays x budget 32 = 262,144 points, L16 F2 T 2^19, scale 8
+# (resolutions 16 to 32767: 4 dense levels, 12 hashed).
+OSPLIT_POINTS, OSPLIT_LOG2_T, OSPLIT_LEVELS = 262144, 19, 16
+OSPLIT_RES = tuple(int(r) for r in hashgrid.level_resolutions(OSPLIT_LEVELS, 16, 32768))
+# Off the path: few points over a small table (dense, boundary and hashed
+# levels), features 1 and 4, P not a multiple of 8.
+OSPLIT_CASES = [(OSPLIT_POINTS, OSPLIT_RES, OSPLIT_LOG2_T, 2), (1001, (4, 9, 31), 10, 1),
+                (777, (4, 9, 31), 10, 4), (5, (31,), 10, 2)]
+# A row's gradient is the difference of two f32 prefix sums of its level,
+# which reach ~100x the largest row at the cell's shape: a few f32 ulps of
+# them are ~1e-5 of it (2.2e-6 for the CPU's sequential scan at that
+# shape); 1e-4 of the largest entry, as the oct layout's test holds.
+OSPLIT_RTOL_OF_MAX = 1e-4
+
+
+def _osplit_inputs(device, points, res, log2_t, n_feats, seed=7):
+    """(idx_levels, w_all [P, L, 8], g_lf [P, L, F]) of random points."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((points, 3), generator=gen, device=device)
+    g = torch.randn((points, len(res), n_feats), generator=gen, device=device)
+    idx_levels, w_all = hashgrid._oct_local_indices_weights(x, res, 2**log2_t)
+    return idx_levels, w_all, g
+
+
+def _osplit_stages(idx_levels, w_all, g, res, table_size):
+    """The sort order, products, prefix sums and ends of the one-pass backward."""
+    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, table_size)
+    vals = hashgrid_grad.sorted_products(order, w_all, g)
+    csum = prefix_scan.cumsum_batched(vals)
+    return order, vals, csum, hashgrid._level_segment_ends(sorted_keys, len(res), table_size)
+
+
+@pytest.mark.parametrize("points,res,log2_t,n_feats", OSPLIT_CASES)
+def test_osplit_grad_kernels_match_plain_exactly(cuda_device, points, res, log2_t, n_feats):
+    """K3a and K3b against their plain versions on the card, on the same
+    sort order, prefix sums and ends: bit for bit."""
+    table_size = 2**log2_t
+    idx_levels, w_all, g = _osplit_inputs(cuda_device, points, res, log2_t, n_feats)
+    hashgrid_grad.reset_launch_counts()
+    order, vals, csum, ends = _osplit_stages(idx_levels, w_all, g, res, table_size)
+    assert hashgrid_grad.PRODUCT_LAUNCHES == 1
+    assert torch.equal(vals, hashgrid_grad.sorted_products_plain(order, w_all, g))
+    offsets = [hashgrid._oct_offsets(r, table_size) for r in res]
+    level_rows = hashgrid._oct_level_rows(res, table_size)
+    got = hashgrid_grad.fold_segments(csum, ends, offsets, level_rows, table_size)
+    assert hashgrid_grad.FOLD_LAUNCHES == 1
+    want = hashgrid_grad.fold_segments_plain(csum, ends, offsets, level_rows, table_size)
+    assert got.shape == (len(res), table_size, n_feats)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("points,res,log2_t,n_feats", OSPLIT_CASES)
+def test_osplit_backward_matches_the_per_level_pipeline(cuda_device, points, res, log2_t,
+                                                        n_feats):
+    """The one-pass table gradient and the per-level pipeline on the card,
+    each against float64 sums of the same bf16 products and against each
+    other, at OSPLIT_RTOL_OF_MAX of the largest entry."""
+    table_size = 2**log2_t
+    idx_levels, w_all, g = _osplit_inputs(cuda_device, points, res, log2_t, n_feats, seed=8)
+    got = hashgrid._oct_split_table_grad(idx_levels, w_all, g, res, table_size)
+    old = hashgrid._oct_split_table_grad_per_level(idx_levels, w_all, g, res, table_size)
+    prod = (w_all[..., None] * g[:, :, None, :]).to(torch.bfloat16).double()
+    want = torch.zeros((len(res), table_size, n_feats), dtype=torch.float64, device=cuda_device)
+    for level, r in enumerate(res):
+        for c, o in enumerate(hashgrid._oct_offsets(r, table_size)):
+            want[level].index_add_(0, (idx_levels[level] + o) % table_size, prod[:, level, c])
+    atol = OSPLIT_RTOL_OF_MAX * float(want.abs().max())
+    for name, grad in (("one pass", got), ("per level", old)):
+        err = float((grad.double() - want).abs().max())
+        assert err <= atol, (name, err, atol)
+    assert float((got - old).abs().max()) <= atol
+
+
+def test_osplit_backward_launches_and_counts_at_the_cell_shape(cuda_device):
+    """One backward at the train cell's shape: 1 K2b, 0 K2a, 1 K3a, 1 K3b,
+    and `hashgrid.grad_levels` counts its 16 levels under a profiler (the
+    backward runs on autograd's device thread)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.rand((OSPLIT_POINTS, 3), generator=gen, device=cuda_device)
+    table = torch.zeros((OSPLIT_LEVELS, 2**OSPLIT_LOG2_T, 2), device=cuda_device,
+                        requires_grad=True)
+    g = torch.randn((OSPLIT_POINTS, 2 * OSPLIT_LEVELS), generator=gen, device=cuda_device)
+    out = hashgrid.OctSplitEncode.apply(x, table, OSPLIT_RES, 2**OSPLIT_LOG2_T)
+    prefix_scan.reset_launch_counts()
+    hashgrid_grad.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        counters = tracing.snapshot()["counters"]
+    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 1)
+    assert (hashgrid_grad.PRODUCT_LAUNCHES, hashgrid_grad.FOLD_LAUNCHES) == (1, 1)
+    assert counters.get("hashgrid.grad_levels") == OSPLIT_LEVELS
+
+
+def test_osplit_backward_makes_no_host_sync(cuda_device):
+    """The backward waits for the card nowhere: no copy of a host constant,
+    no read of a device value (torch's sync debug mode raises on either)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.rand((OSPLIT_POINTS, 3), generator=gen, device=cuda_device)
+    table = torch.zeros((OSPLIT_LEVELS, 2**OSPLIT_LOG2_T, 2), device=cuda_device,
+                        requires_grad=True)
+    g = torch.randn((OSPLIT_POINTS, 2 * OSPLIT_LEVELS), generator=gen, device=cuda_device)
+    out = hashgrid.OctSplitEncode.apply(x, table, OSPLIT_RES, 2**OSPLIT_LOG2_T)
+    (out * g).sum().backward()  # builds the kernels and warms the allocator
+    table.grad = None
+    loss = (hashgrid.OctSplitEncode.apply(x, table, OSPLIT_RES, 2**OSPLIT_LOG2_T) * g).sum()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert table.grad is not None and bool(torch.isfinite(table.grad).all())
 
 
 # The probe's shape; many tiles per element; many elements of one tile or

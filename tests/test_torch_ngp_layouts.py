@@ -147,7 +147,7 @@ def _torch_grads(fn, x, table, g):
     return out.detach().numpy(), xt.grad.numpy(), tt.grad.numpy()
 
 
-@pytest.mark.parametrize("layout", ["corner", "quad", "oct"])
+@pytest.mark.parametrize("layout", ["corner", "quad", "oct", "osplit"])
 def test_sorted_gradients_match_the_reference_vjp(inputs, layout):
     x, table, g = inputs
     fn = J_SORTED[layout](RES, T)
@@ -156,6 +156,11 @@ def test_sorted_gradients_match_the_reference_vjp(inputs, layout):
     out, dx, dt = _torch_grads(lambda a, b: T_SORTED[layout].apply(a, b, RES, T), x, table, g)
     np.testing.assert_allclose(out, np.asarray(want_out), rtol=1e-6, atol=1e-6)
     _assert_grads(dx, dt, want_dx, want_dt, TABLE_REF_RTOL)
+    if layout == "osplit":
+        # Its plain encode reads bf16 tables, whose autograd rounds the
+        # table gradient to bf16; tests/test_torch_hashgrid_grad.py holds it
+        # against float64 sums of the bf16 products instead.
+        return
     # The same f32 weights and cotangent, their products and sums in float64:
     # autograd of the plain encode on a float64 table.
     _, dx64, dt64 = _torch_grads(lambda a, b: T_ENCODE[layout](a, b, RES, T), x,

@@ -21,7 +21,10 @@ OSPLIT_KEYS = {
     "sentinel_sorts_1lvl_s", "cumsum_plain_1lvl_s", "cumsum_kernel_1lvl_s", "row_sums_1lvl_s",
     "row_sums_merged_1lvl_s", "merged_matches", "osplit_fwd_bwd_plain_scan_derived_s",
     "sort_16_separate_s", "sort_batched_s", "cumsum_plain_16_s", "cumsum_kernel_batched_s",
-    "vgather_16_separate_s", "vgather_batched_s",
+    "vgather_16_separate_s", "vgather_batched_s", "table_grad_one_pass_s",
+    "table_grad_per_level_s", "one_pass_matches", "sort_level_keys_int64_s",
+    "sort_level_keys_int32_s", "products_kernel_s", "products_plain_s", "segment_ends_s",
+    "fold_kernel_s", "fold_plain_s",
 }
 
 
@@ -59,7 +62,10 @@ def test_osplit_probe_on_cpu(tmp_path):
     assert results["merged_matches"] and results["device"] == "cpu" and results["m"] == 512
     _times_ok(results)
     # The CPU runs the plain versions: the timed calls launch no kernel.
-    assert results["launches"]["cumsum_kernel_batched"] == {"calls": 2, "launches": 0}
+    assert results["one_pass_matches"]
+    for group in ("cumsum_kernel_batched", "osplit_fwd_bwd", "table_grad_one_pass",
+                  "table_grad_per_level", "products_kernel", "fold_kernel"):
+        assert results["launches"][group] == {"calls": 2, "launches": 0}, group
     assert "derived" in results["notes"]["osplit_fwd_bwd_plain_scan_derived_s"]
 
 
