@@ -14,6 +14,11 @@ reference (no compositing kernel: its numerics differ from K1's
 exp-of-cumsum by the 1e-6 term). Randomness comes from the `generator`
 passed to `forward`; `generator=None` is the deterministic path. Module
 names follow the Flax tree: `level{i}.{fg,bg}_field` and `autoexpo{i}`.
+
+Under a profiler each level marks its draw (`nerfpp.sample`) and its
+foreground and background (`nerfpp.fg`, `nerfpp.bg`: points, field MLP and
+compositing), and a forward counts its field points (`nerfpp.points`, fg
+plus bg) and rays (`nerfpp.rays`) from the shapes (`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 from outdoor_nerf_depth_torch.models.mlps import PointFieldMLP
 from outdoor_nerf_depth_torch.ops import geometry, mathx, stepfuns
 from outdoor_nerf_depth_torch.parallel import mesh
+from outdoor_nerf_depth_torch.utils import tracing
 
 _HUGE = 1e10
 _TINY = 1e-6
@@ -50,40 +56,42 @@ class SphereSceneLevel(nn.Module):
         d_norm = torch.linalg.norm(ray_d, dim=-1, keepdim=True)
         viewdirs = ray_d / d_norm
 
-        # Foreground: points inside the unit sphere, per-ray view directions.
-        fg_pts = ray_o[..., None, :] + fg_z[..., None] * ray_d[..., None, :]
-        fg_sigma, fg_rgb = self.fg_field(fg_pts, viewdirs)
-        # Sample to sample, then on to the sphere exit; metric by |d|.
-        fg_len = d_norm * torch.cat(
-            [torch.diff(fg_z, dim=-1), fg_far[..., None] - fg_z[..., -1:]], dim=-1
-        )
-        fg_alpha = 1.0 - torch.exp(-fg_sigma * fg_len)
-        surv = torch.cumprod(1.0 - fg_alpha + _TINY, dim=-1)
-        bg_lambda = surv[..., -1]  # transmittance past the sphere
-        fg_trans = torch.cat([torch.ones_like(surv[..., :1]), surv[..., :-1]], dim=-1)
-        fg_weights = fg_alpha * fg_trans
-        fg_rgb_map = torch.sum(fg_weights[..., None] * fg_rgb, dim=-2)
-        fg_depth_map = torch.sum(fg_weights * fg_z, dim=-1)
+        with tracing.span("nerfpp.fg"):
+            # Foreground: points inside the unit sphere, per-ray view directions.
+            fg_pts = ray_o[..., None, :] + fg_z[..., None] * ray_d[..., None, :]
+            fg_sigma, fg_rgb = self.fg_field(fg_pts, viewdirs)
+            # Sample to sample, then on to the sphere exit; metric by |d|.
+            fg_len = d_norm * torch.cat(
+                [torch.diff(fg_z, dim=-1), fg_far[..., None] - fg_z[..., -1:]], dim=-1
+            )
+            fg_alpha = 1.0 - torch.exp(-fg_sigma * fg_len)
+            surv = torch.cumprod(1.0 - fg_alpha + _TINY, dim=-1)
+            bg_lambda = surv[..., -1]  # transmittance past the sphere
+            fg_trans = torch.cat([torch.ones_like(surv[..., :1]), surv[..., :-1]], dim=-1)
+            fg_weights = fg_alpha * fg_trans
+            fg_rgb_map = torch.sum(fg_weights[..., None] * fg_rgb, dim=-2)
+            fg_depth_map = torch.sum(fg_weights * fg_z, dim=-1)
 
-        # Background: march the shells near to far, i.e. in descending
-        # inverse radius from the sphere outward.
-        inv_r_nf = torch.flip(bg_inv_r, dims=(-1,))
-        shape = bg_inv_r.shape + (3,)
-        bg_pts, bg_t = geometry.inverted_sphere_points(
-            ray_o[..., None, :].expand(shape), ray_d[..., None, :].expand(shape), inv_r_nf
-        )
-        bg_sigma, bg_rgb = self.bg_field(bg_pts, viewdirs)
-        # Shell widths in inverse radius; the outermost reaches infinity.
-        bg_len = torch.cat(
-            [inv_r_nf[..., :-1] - inv_r_nf[..., 1:], torch.full_like(inv_r_nf[..., :1], _HUGE)],
-            dim=-1,
-        )
-        bg_alpha = 1.0 - torch.exp(-bg_sigma * bg_len)
-        bg_surv = torch.cumprod(1.0 - bg_alpha + _TINY, dim=-1)[..., :-1]
-        bg_trans = torch.cat([torch.ones_like(bg_surv[..., :1]), bg_surv], dim=-1)
-        bg_weights = bg_alpha * bg_trans
-        bg_rgb_map = torch.sum(bg_weights[..., None] * bg_rgb, dim=-2)
-        bg_depth_map = torch.sum(bg_weights * bg_t, dim=-1)
+        with tracing.span("nerfpp.bg"):
+            # Background: march the shells near to far, i.e. in descending
+            # inverse radius from the sphere outward.
+            inv_r_nf = torch.flip(bg_inv_r, dims=(-1,))
+            shape = bg_inv_r.shape + (3,)
+            bg_pts, bg_t = geometry.inverted_sphere_points(
+                ray_o[..., None, :].expand(shape), ray_d[..., None, :].expand(shape), inv_r_nf
+            )
+            bg_sigma, bg_rgb = self.bg_field(bg_pts, viewdirs)
+            # Shell widths in inverse radius; the outermost reaches infinity.
+            bg_len = torch.cat(
+                [inv_r_nf[..., :-1] - inv_r_nf[..., 1:], torch.full_like(inv_r_nf[..., :1], _HUGE)],
+                dim=-1,
+            )
+            bg_alpha = 1.0 - torch.exp(-bg_sigma * bg_len)
+            bg_surv = torch.cumprod(1.0 - bg_alpha + _TINY, dim=-1)[..., :-1]
+            bg_trans = torch.cat([torch.ones_like(bg_surv[..., :1]), bg_surv], dim=-1)
+            bg_weights = bg_alpha * bg_trans
+            bg_rgb_map = torch.sum(bg_weights[..., None] * bg_rgb, dim=-2)
+            bg_depth_map = torch.sum(bg_weights * bg_t, dim=-1)
 
         depth = fg_depth_map + bg_lambda * bg_depth_map
         return dict(
@@ -146,12 +154,13 @@ class InvertedSphereModel(nn.Module):
         ray_o, ray_d = rays.origins, rays.directions
         fg_far, _ = geometry.intersect_unit_sphere(ray_o, ray_d)
         fg_near = rays.near[..., 0].expand(fg_far.shape)
+        tracing.count("nerfpp.rays", fg_far.numel())
 
         renderings, ray_history = [], []
         fg_z = bg_inv_r = prev = None
         for level, n_samples in enumerate(self.cascade_samples):
             # No parameter reaches the samples: draw them without a graph.
-            with torch.no_grad():
+            with tracing.span("nerfpp.sample"), torch.no_grad():
                 if level == 0:
                     frac = torch.linspace(0.0, 1.0, n_samples, dtype=ray_o.dtype,
                                           device=ray_o.device)
@@ -167,6 +176,7 @@ class InvertedSphereModel(nn.Module):
                                                   n_samples)
                     bg_inv_r = torch.sort(torch.cat([bg_inv_r, bg_new], dim=-1), dim=-1).values
 
+            tracing.count("nerfpp.points", fg_z.numel() + bg_inv_r.numel())
             out = getattr(self, f"level{level}")(ray_o, ray_d, fg_far, fg_z, bg_inv_r)
             if self.optimize_autoexposure:
                 expo = getattr(self, f"autoexpo{level}")(rays.cam_idx[..., 0].long())

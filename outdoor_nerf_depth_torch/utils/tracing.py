@@ -21,8 +21,8 @@ by hand; `snapshot()` returns it as plain numbers after one wait per
 device holding a counted tensor.
 
 Names follow the layer: `loop.*` (train/loop.py), `step.*` (the train
-step's phases), `ngp.*` and `mip.*` (the models), `render.*` and `view.*`
-(the renderer and the viewer). The span names are part of what traces and
+step's phases), `ngp.*`, `mip.*` and `nerfpp.*` (the models), `render.*`
+and `view.*` (the renderer and the viewer). The span names are part of what traces and
 their readers rely on: rename one only with its readers.
 """
 

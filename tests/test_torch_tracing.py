@@ -35,7 +35,14 @@ NGP = ("configs/kitti_ngp.json", [
     "dataset=synthetic", "batch_size=32", "occupancy_update_every=2",
     "occupancy_warmup_steps=2", "occupancy_cells_per_update=64", "render_chunk_size=40",
     "model_params=" + json.dumps(NGP_PARAMS)])
-CONFIGS = {"mip": MIP, "ngp": NGP}
+NERFPP_PARAMS = dict(cascade_samples=[6, 6], net_depth=2, net_width=16, pos_degrees=4,
+                     view_degrees=2)
+NERFPP = ("configs/kitti_nerfpp.json", [
+    "dataset=synthetic", "batch_size=32", "render_chunk_size=64",
+    "model_params=" + json.dumps(NERFPP_PARAMS)])
+CONFIGS = {"mip": MIP, "ngp": NGP, "nerfpp": NERFPP}
+# The span each model opens inside `step.forward`.
+MODEL_SPAN = {"mip": "mip.mlp", "ngp": "ngp.march", "nerfpp": "nerfpp.fg"}
 PHASES = ("loop.batch", "step.forward", "step.backward", "step.optimizer")
 
 
@@ -149,7 +156,7 @@ def test_threads_recording_at_once_lose_no_update(monkeypatch):
     assert snap["counters"]["ngp.rays"] == threads * per
 
 
-@pytest.mark.parametrize("kind", ["mip", "ngp"])
+@pytest.mark.parametrize("kind", ["mip", "ngp", "nerfpp"])
 def test_every_trained_step_holds_its_phases_in_order(kind, tmp_path):
     config = _config(kind, tmp_path, "max_steps=6")
     _, spans = _profiled(lambda: t_loop.train(config, device="cpu", log_fn=lambda line: None))
@@ -161,12 +168,15 @@ def test_every_trained_step_holds_its_phases_in_order(kind, tmp_path):
         assert firsts == sorted(firsts), [s[0] for s in inner]
         batch = _inside(spans, _named(inner, "loop.batch")[0])
         assert [s[0] for s in batch] == ["loop.batch.wait", "loop.batch.copy"]
-        model = "ngp.march" if kind == "ngp" else "mip.mlp"
-        assert _inside(spans, _named(inner, "step.forward")[0], model)
+        assert _inside(spans, _named(inner, "step.forward")[0], MODEL_SPAN[kind])
     if kind == "mip":  # one resampling and one MLP a level
         forward = _named(spans, "step.forward")[0]
         assert len(_inside(spans, forward, "mip.resample")) == 2
         assert len(_inside(spans, forward, "mip.mlp")) == 2
+    if kind == "nerfpp":  # each level draws, then renders its foreground and background
+        for forward in _named(spans, "step.forward"):
+            names = [s[0] for s in _inside(spans, forward) if s[0].startswith("nerfpp.")]
+            assert names == ["nerfpp.sample", "nerfpp.fg", "nerfpp.bg"] * 2, names
     # The NGP refresh falls due before steps 0, 2 and 4, inside those steps.
     refreshes = [i for i, outer in enumerate(steps) if _inside(spans, outer, "loop.refresh")]
     assert refreshes == ([0, 2, 4] if kind == "ngp" else [])
@@ -242,3 +252,76 @@ def test_ngp_samples_counter_equals_the_steps_own_stats(tmp_path):
     np.testing.assert_allclose(counters["ngp.samples"], recount, rtol=1e-6)
     assert 0 < counters["ngp.samples"] / counters["ngp.rays"] <= NGP_PARAMS["max_samples"]
     assert len(_named(spans, "step.forward")) == len(_named(spans, "step.optimizer")) == 3
+
+
+def _nerfpp_rays(n: int):
+    """n rays from inside the unit sphere, seeded."""
+    g = torch.Generator().manual_seed(5)
+    origins = 0.3 * (torch.rand(n, 3, generator=g) - 0.5)
+    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=-1)
+    rays = rays_lib.dummy_rays((n,))
+    return rays_lib.Rays(**{**{f: getattr(rays, f) for f in rays.__dataclass_fields__},
+                            "origins": origins, "directions": dirs, "viewdirs": dirs,
+                            "near": torch.full((n, 1), 1e-4), "far": torch.full((n, 1), 2.0)})
+
+
+@pytest.mark.parametrize("cascade,per_ray", [((64, 128), 512), ((6, 6), 36), ((5, 3, 2), 46)])
+def test_nerfpp_counters_read_the_cascades_points_a_ray(cascade, per_ray):
+    """Each level evaluates its samples, all earlier ones merged in, in the
+    foreground and the background field: 2 x (64 + 192) at the config's (64, 128)."""
+    from outdoor_nerf_depth_torch.models.nerfpp import InvertedSphereModel
+
+    model = InvertedSphereModel(cascade_samples=cascade, net_depth=2, net_width=16,
+                                pos_degrees=4, view_degrees=2,
+                                generator=torch.Generator().manual_seed(0))
+    n = 6
+    _, spans = _profiled(lambda: model(_nerfpp_rays(n), generator=torch.Generator().manual_seed(1)))
+    counters = tracing.snapshot()["counters"]
+    assert counters["nerfpp.rays"] == n
+    assert counters["nerfpp.points"] / counters["nerfpp.rays"] == per_ray
+    assert [s[0] for s in spans] == ["nerfpp.sample", "nerfpp.fg", "nerfpp.bg"] * len(cascade)
+
+
+def _nerfpp_step_readings(tmp_path, profiled: bool):
+    """One seeded NeRF++ train step on the CPU: its loss, the gradients the
+    optimizer got, the parameters after it and the aten ops it dispatched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace != "profiler":  # record_function's own ops
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    config = _config("nerfpp", tmp_path)
+    model = t_step.build_model(config, generator=torch.Generator().manual_seed(0))
+    optimizer, lr_fn = t_step.make_optimizer(config, model)
+    dataset = t_loop.build_dataset(config, "train")
+    train_step = t_step.make_train_step(config, model, optimizer, lr_fn,
+                                        cameras=dataset.cameras_on("cpu"),
+                                        camtype=dataset.camtype)
+    batch = dataset.sample_batch()
+    counter = OpCount()
+
+    def step():
+        with counter:
+            return train_step(batch, 0, 0.0, torch.Generator().manual_seed(2))
+
+    stats = _profiled(step)[0] if profiled else step()
+    return (float(stats["loss"]), {k: p.grad.clone() for k, p in model.named_parameters()},
+            {k: p.detach().clone() for k, p in model.named_parameters()}, counter.ops)
+
+
+def test_a_nerfpp_step_is_the_same_with_a_profiler_recording(tmp_path):
+    loss, grads, params, ops = _nerfpp_step_readings(tmp_path, profiled=False)
+    assert tracing.snapshot() == {"counters": {}, "spans": {}}
+    loss_p, grads_p, params_p, ops_p = _nerfpp_step_readings(tmp_path, profiled=True)
+    assert "nerfpp.fg" in tracing.snapshot()["spans"]
+    assert loss_p == loss and ops_p == ops and len(ops) > 100
+    for k in grads:
+        assert torch.equal(grads_p[k], grads[k]), k
+        assert torch.equal(params_p[k], params[k]), k
