@@ -17,7 +17,8 @@ non-zero without the final line:
               layout's [4194304, 16], K2b at the osplit step's
               [16, 262144, 16]; K3a and K3b bit for bit at the osplit step's
               shape and at edge cases, on row ids drawn in each level's
-              rows); times from CUDA
+              rows; K4, the osplit forward, bit for bit at the NGP cells'
+              point counts and at edge cases); times from CUDA
               events, with K1a and K1b also for one ray (their launch
               floor), a device copy of K2b's input, and P2 also at chunks
               of 256 and 1024 rows (same bytes, other k-step counts)
@@ -34,7 +35,8 @@ non-zero without the final line:
               L16 F2 T2^19, batch 8192, sample budget 32) on the same scene for
               20 steps, occupancy refreshes at steps 0 and 16, then a warmup and
               a sampled refresh timed on their own; 1 K3a, 1 K2b (all 16
-              levels at once) and 1 K3b launch per step
+              levels at once) and 1 K3b launch per step, and 1 K4 a step's
+              forward beside 1 a chunk of each refresh
   ngp_render  render_image() of one 94x310 view with the trained grid, held
               against the same model and grid on the CPU for a few rays
   ngp_profile two more NGP train steps under torch.profiler, then one warmup
@@ -250,7 +252,7 @@ non-zero without the final line:
               parameters; tolerances at DDP_*), with the per-rank step ms,
               the launches on each rank and the gloo all-reduce ms
 
-K3a and K3b are held against their plain versions (bit for bit) at every
+K4, K3a and K3b are held against their plain versions (bit for bit) at every
 launch key of every phase, phase ddp's ranks included: the keys are recorded
 for the whole run, and those phase kernels did not check are checked after
 the paths that hold their shapes (`_hold_path_shapes`) and before the
@@ -261,6 +263,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import io
 import json
 import math
@@ -294,7 +297,7 @@ from outdoor_nerf_depth_torch.ops import occupancy as occ_lib  # noqa: E402
 from outdoor_nerf_depth_torch.ops import refdirs, volren, volren_weights  # noqa: E402
 from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bwd  # noqa: E402
 from outdoor_nerf_depth_torch.probes import (nerfpp_ablate, nerfpp_mfu, ngp_bwd,  # noqa: E402
-                                             ngp_eval, ngp_step, profile_step)
+                                             ngp_eval, ngp_step, profile_step, workloads)
 from outdoor_nerf_depth_torch.probes import card as probe_card  # noqa: E402
 from outdoor_nerf_depth_torch.probes import kernel_launches as _launches  # noqa: E402
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib  # noqa: E402
@@ -306,6 +309,7 @@ from outdoor_nerf_depth_torch.tools import render as render_tool  # noqa: E402
 from outdoor_nerf_depth_torch.tools import run_public_benchmark  # noqa: E402
 from outdoor_nerf_depth_torch.tools import viewer  # noqa: E402
 from outdoor_nerf_depth_torch.data import preprocess  # noqa: E402
+from outdoor_nerf_depth_torch.models.ngp import HashGridModel  # noqa: E402
 from outdoor_nerf_depth_torch.tools import train_prior  # noqa: E402
 from outdoor_nerf_depth_torch.train import lpips as lpips_lib  # noqa: E402
 from outdoor_nerf_depth_torch.train import metrics as metrics_lib  # noqa: E402
@@ -403,6 +407,24 @@ SCAN_BF16_RTOL = float(torch.finfo(torch.bfloat16).eps)
 GRAD_RES = tuple(int(r) for r in hashgrid.level_resolutions(NGP_LEVELS, 16, 32768))
 GRAD_PATH = (SCAN_PATH[0], GRAD_RES, 19, 2)  # points, resolutions, log2 T, features
 GRAD_EDGE_CASES = ((1001, (4, 9, 31), 10, 1), (777, (4, 9, 31), 10, 4), (5, (31,), 10, 2))
+# K4, the osplit forward, where the NGP cells run it: the train step's points
+# with the table gradient's keys and weights; a view chunk (16,384 rays x
+# budget 32), the view's last chunk (10,848 rays) and a refresh chunk
+# (`ops/occupancy.py:update_grid`) without; then the points' gradient's bf16
+# rows, bf16 features, features 1 and 4, P not a multiple of 32. A launch
+# key: (points, resolutions, log2 T, F, feature dtype, keys and weights,
+# rows). Each must equal the plain version bit for bit. Timed on points
+# along rays in raster order (as a chunk's compacted samples lie) at the
+# train step's and a view chunk's counts. Bytes (the bound): each point's x
+# and features, keys and weights where written, and each distinct table row
+# read once, counted on the timed points.
+ENCODE_CASES = tuple((p, GRAD_RES, 19, 2, "float32", grad, False)
+                     for p, grad in ((GRAD_PATH[0], True), (524288, False), (347136, False),
+                                     (131072, False))) + (
+    (4099, GRAD_RES, 19, 2, "float32", True, True), (4099, GRAD_RES, 19, 2, "bfloat16", True, False),
+    (1001, (4, 9, 31), 10, 1, "float32", True, True),
+    (777, (4, 9, 31), 10, 4, "bfloat16", True, True), (5, (31,), 10, 2, "float32", True, True))
+ENCODE_TIMED = ENCODE_CASES[:2]
 # The KITTI phase: the fixture of the quality runs, the mip flagship for 4
 # steps with checkpoints at 2 and 4, resumed to 6; NGP for 20 steps.
 KITTI_VIEWS = 30
@@ -532,18 +554,19 @@ PROBE_MFU_SWEEP = ((1024, 8), (1024, 32), (4096, 8))
 # bench_probes paths launched them at (beyond phase kernels' shapes), and
 # of K3a and K3b at every launch key of any phase, by kernel and shape; the
 # kernels line takes them into its max_abs_err.
-PATH_SHAPE_ERRORS = {"K1": {}, "K2a": {}, "K2b": {}, "K3a": {}, "K3b": {}}
-# Every K3a launch key (points, levels, features) and K3b launch key
-# (`_grad_plan`) of this process and of phase ddp's ranks
-# (`_record_grad_launches`), and those held against the plain version.
-GRAD_LAUNCHED = {"K3a": set(), "K3b": set()}
-GRAD_CHECKED = {"K3a": set(), "K3b": set()}
+PATH_SHAPE_ERRORS = {"K1": {}, "K2a": {}, "K2b": {}, "K3a": {}, "K3b": {}, "K4": {}}
+# Every K3a launch key (points, levels, features), K3b launch key
+# (`_grad_plan`) and K4 launch key (ENCODE_CASES' form) of this process and
+# of phase ddp's ranks (`_record_grad_launches`), and those held against the
+# plain version.
+GRAD_LAUNCHED = {"K3a": set(), "K3b": set(), "K4": set()}
+GRAD_CHECKED = {"K3a": set(), "K3b": set(), "K4": set()}
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
 GATHER_SOURCE = "outdoor_nerf_depth_torch/csrc/chunk_gather.cu"
 GRAD_SOURCE = "outdoor_nerf_depth_torch/csrc/hashgrid_grad.cu"
-KERNEL_IDS = ("K1a", "K1b", "K2a", "K2b", "K3a", "K3b", "P1", "P2")
+KERNEL_IDS = ("K1a", "K1b", "K2a", "K2b", "K3a", "K3b", "K4", "P1", "P2")
 
 
 def emit(obj):
@@ -815,7 +838,7 @@ def _grad_stages(gen, plan):
     idx_levels = [torch.randint(0, r, (points,), generator=gen, device="cuda") for r in rows]
     w_all = torch.rand((points, len(rows), hashgrid_grad.CORNERS), generator=gen, device="cuda")
     g = torch.randn((points, len(rows), n_feats), generator=gen, device="cuda")
-    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, table_size)
+    sorted_keys, order = hashgrid._sorted_level_keys(hashgrid._level_keys(idx_levels, table_size))
     csum = prefix_scan.cumsum_batched(hashgrid_grad.sorted_products_plain(order, w_all, g))
     ends = hashgrid._level_segment_ends(sorted_keys, len(rows), table_size)
     return order, w_all, g, csum, ends
@@ -880,10 +903,105 @@ def _grad_kernels(gen):
     return errors, timing
 
 
+def _encode_key_name(key):
+    """A K4 launch key's name."""
+    points, res, log2_t, n_feats, dtype, keys, rows = key
+    return (f"{points}p_L{len(res)}_T2^{log2_t}_F{n_feats}_{dtype}" + ("_keys" if keys else "")
+            + ("_rows" if rows else ""))
+
+
+def _encode_args(x, table, key):
+    """`ops/hashgrid.py:_oct_split_forward`'s arguments (its plain twin's
+    too) at a launch key."""
+    _, res, log2_t, _, dtype, keys, rows = key
+    return x, table, res, 2**log2_t, getattr(torch, dtype), keys, rows
+
+
+def _check_encode(gen, key):
+    """K4 against its plain version (exact) at a launch key, on points in
+    the unit cube and a little outside it; kept in GRAD_CHECKED. Returns the
+    largest error over the features, keys, weights and rows it writes."""
+    points, res, log2_t, n_feats = key[:4]
+    x = 1.1 * torch.rand((points, 3), generator=gen, device="cuda") - 0.05
+    table = 1e-2 * torch.randn((len(res), 2**log2_t, n_feats), generator=gen, device="cuda")
+    args = _encode_args(x, table, key)
+    got = hashgrid._oct_split_forward(*args)
+    want = hashgrid._oct_split_forward_plain(*args)
+    name = f"K4 at {_encode_key_name(key)}"
+    err = max(_exact(f"{name}: {part}", a.float(), b.float())
+              for part, a, b in zip(("features", "keys", "w_all", "rows"), got, want)
+              if a is not None or b is not None)
+    GRAD_CHECKED["K4"].add(key)
+    return err
+
+
+def _ray_points(n_rays, per_ray):
+    """Points along rays from the cube's centre through a 30 x 90 degree
+    raster, spaced exponentially out to 0.5: consecutive samples of a ray,
+    neighbouring rays in raster order."""
+    rows = int(n_rays**0.5) // 2
+    el, az = torch.meshgrid(torch.linspace(-0.26, 0.26, rows, device="cuda"),
+                            torch.linspace(-0.79, 0.79, -(-n_rays // rows), device="cuda"),
+                            indexing="ij")
+    d = torch.stack([torch.cos(el) * torch.cos(az), torch.cos(el) * torch.sin(az),
+                     torch.sin(el)], -1).reshape(-1, 3)[:n_rays]
+    t = 0.002 * 250.0 ** torch.linspace(0.0, 1.0, per_ray, device="cuda")
+    return (0.5 + d[:, None, :] * t[None, :, None]).reshape(-1, 3).contiguous()
+
+
+def _events_ms(fn, reps=20):
+    """Mean device time of one call over `reps` calls between CUDA events
+    (the plain version copies host constants, which a CUDA graph refuses)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _encode_kernels(gen):
+    """K4 against its plain version (exact) at ENCODE_CASES, then timed at
+    ENCODE_TIMED on points along rays, beside its byte bound and its plain
+    version."""
+    errors = {_encode_key_name(key): _check_encode(gen, key) for key in ENCODE_CASES}
+    timing = {}
+    for key in ENCODE_TIMED:
+        points, res, log2_t, n_feats, _, keys, _ = key
+        table_size = 2**log2_t
+        x = _ray_points(points // 32, 32)
+        table = 1e-2 * torch.randn((len(res), table_size, n_feats), generator=gen, device="cuda")
+        args = _encode_args(x, table, key)
+        idx_levels, _ = hashgrid._oct_local_indices_weights(x, res, table_size)
+        distinct = sum(int(torch.unique((i[:, None] + torch.tensor(
+            hashgrid._oct_offsets(r, table_size), device="cuda")) % table_size).numel())
+            for i, r in zip(idx_levels, res))
+        per_point = 12 + 4 * len(res) * n_feats + (36 * len(res) if keys else 0)
+        timing[_encode_key_name(key)] = {
+            "points": points, "levels": len(res), "table_size": table_size, "features": n_feats,
+            "keys_and_weights": keys, "distinct_table_rows": distinct,
+            "ms": device_ms(lambda: hashgrid._oct_split_forward(*args)),
+            "plain_ms": _events_ms(lambda: hashgrid._oct_split_forward_plain(*args), 5),
+            "bound_ms": 1e3 * (points * per_point + distinct * 4 * n_feats) / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "points_along": "rays"}
+    return {"K4": errors}, timing
+
+
 def _record_grad_launches():
-    """From now on, record the launch key of every K3a and K3b launch of
+    """From now on, record the launch key of every K4, K3a and K3b launch of
     this process into GRAD_LAUNCHED (the wrappers are called as usual)."""
     products, fold = hashgrid_grad.sorted_products_cuda, hashgrid_grad.fold_segments_cuda
+    encode = hashgrid_grad.oct_split_encode_cuda
+
+    def recording_encode(x, table, resolutions, strides, pair_offsets, dtype=torch.float32,
+                         keys=False, rows=False):
+        GRAD_LAUNCHED["K4"].add((x.shape[0], tuple(int(r) for r in resolutions),
+                                 table.shape[1].bit_length() - 1, table.shape[-1],
+                                 str(dtype).split(".")[-1], bool(keys), bool(rows)))
+        return encode(x, table, resolutions, strides, pair_offsets, dtype, keys, rows)
 
     def recording_products(order, w_all, g_lf):
         GRAD_LAUNCHED["K3a"].add(tuple(g_lf.shape))
@@ -897,6 +1015,7 @@ def _record_grad_launches():
 
     hashgrid_grad.sorted_products_cuda = recording_products
     hashgrid_grad.fold_segments_cuda = recording_fold
+    hashgrid_grad.oct_split_encode_cuda = recording_encode
 
 
 def _grad_launched_lists():
@@ -910,20 +1029,23 @@ def _add_grad_launched(lists):
     GRAD_LAUNCHED["K3b"].update(
         (p, t, f, tuple(tuple(lv) for lv in offsets), tuple(rows))
         for p, t, f, offsets, rows in lists["K3b"])
+    GRAD_LAUNCHED["K4"].update((p, tuple(res), *rest) for p, res, *rest in lists["K4"])
 
 
 def _hold_grad_launches():
     """K3a and K3b held against their plain versions at every K3b launch key
-    recorded so far that no check has covered, K3a at its shape. (Every
-    path launches K3a beside K3b at the same points; the summary fails on
-    a K3a shape left unchecked.) Returns the errors, also kept in
-    PATH_SHAPE_ERRORS."""
+    recorded so far that no check has covered, K3a at its shape, and K4 at
+    every launch key of its own. (Every path launches K3a beside K3b at the
+    same points; the summary fails on a K3a shape left unchecked.) Returns
+    the errors, also kept in PATH_SHAPE_ERRORS."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errors = {"K3a": {}, "K3b": {}}
+    errors = {"K3a": {}, "K3b": {}, "K4": {}}
     for plan in sorted(GRAD_LAUNCHED["K3b"] - GRAD_CHECKED["K3b"]):
         got = _check_grad(gen, plan)
         errors["K3a"][_products_key(plan[0], len(plan[4]), plan[2])] = got["K3a"]
         errors["K3b"][_grad_key(plan)] = got["K3b"]
+    for key in sorted(GRAD_LAUNCHED["K4"] - GRAD_CHECKED["K4"]):
+        errors["K4"][_encode_key_name(key)] = _check_encode(gen, key)
     for kid in errors:
         PATH_SHAPE_ERRORS[kid].update(errors[kid])
     torch.cuda.empty_cache()
@@ -1061,6 +1183,9 @@ def phase_kernels():
     bf16_errors = {"x".join(str(d) for d in shape): _check_scan_bf16(randn(shape))
                    for shape in SCAN_BF16_SHAPES}
     grad_errors, grad_timing = _grad_kernels(gen)
+    encode_errors, encode_timing = _encode_kernels(gen)
+    grad_errors.update(encode_errors)
+    grad_timing["K4"] = encode_timing
     torch.cuda.empty_cache()
     gather_errors, gather_timing = _gather_kernels(gen)
     emit({"phase": "kernels",
@@ -1168,10 +1293,11 @@ def phase_train(exp_dir):
 
 
 def _render_check(config, model, flops_fn, expect, label, rtol, batch=None, rgb_atol=1e-3):
-    """Render one test view three times (launches counted on the first),
-    then hold 128 of its rays against the same model on the CPU. The view
-    is the synthetic scene's first test view unless `batch` is given; the
-    renderer is the config's `ngp_eval_renderer` for an NGP model."""
+    """Render one test view three times (launches counted on the first,
+    `expect(render chunks, field calls)`: an NGP model's, else 0), then
+    hold 128 of its rays against the same model on the CPU. The view is the
+    synthetic scene's first test view unless `batch` is given; the renderer
+    is the config's `ngp_eval_renderer` for an NGP model."""
     batch = batch or _scene(config, "test", 0).image_batch(0)
     renderer = config.ngp_eval_renderer
     n_rays = HEIGHT * WIDTH
@@ -1182,12 +1308,13 @@ def _render_check(config, model, flops_fn, expect, label, rtol, batch=None, rgb_
             _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = step_lib.render_image(model, batch, config.render_chunk_size, "cuda", renderer)
+        with _counting_field_calls(model if i == 0 else None) as field_calls:
+            out = step_lib.render_image(model, batch, config.render_chunk_size, "cuda", renderer)
         times.append(1e3 * (time.perf_counter() - t0))
         if i == 0:
-            launches = _launches()
-            if launches != expect(chunks):
-                raise AssertionError(f"{label}: expected {expect(chunks)} launches, got {launches}")
+            launches, want = _launches(), expect(chunks, field_calls[0])
+            if launches != want:
+                raise AssertionError(f"{label}: expected {want} launches, got {launches}")
     for key, shape in (("rgb", (HEIGHT, WIDTH, 3)), ("distance_mean", (HEIGHT, WIDTH))):
         if out[key].shape != shape or not np.isfinite(out[key]).all():
             raise AssertionError(f"{key}: shape {out[key].shape} or non-finite values")
@@ -1229,7 +1356,7 @@ def phase_render(config, model):
     # resampling passes that on: 1e-3 of slack on rgb in [0, 1], relative
     # 1e-3 on distances.
     out = _render_check(config, model, mlp_forward_flops,
-                        lambda chunks: _only(K1a=3 * chunks), "render", 1e-3)
+                        lambda chunks, _: _only(K1a=3 * chunks), "render", 1e-3)
     emit(_without_image(out))
     return out["launches"]
 
@@ -1406,10 +1533,65 @@ def _hold_path_shapes(shapes):
             "checked_here": errors}
 
 
-def _ngp_launches(steps):
-    """An NGP train run: 1 K1a and 1 K1b a step, and the osplit table
-    gradient's 1 K3a, 1 K2b (all hash levels at once) and 1 K3b."""
-    return _only(K1a=steps, K1b=steps, K2b=steps, K3a=steps, K3b=steps)
+def _ngp_launches(steps, refresh_chunks=0):
+    """An NGP train run on the osplit layout: 1 K1a and 1 K1b a step, the
+    table gradient's 1 K3a, 1 K2b (all hash levels at once) and 1 K3b, and
+    1 K4 a step's forward and one a chunk of the run's occupancy refreshes
+    (`_refresh_chunks`)."""
+    return _only(K1a=steps, K1b=steps, K2b=steps, K3a=steps, K3b=steps,
+                 K4=steps + refresh_chunks)
+
+
+def _sweep_chunks(config, warmup):
+    """K4 launches of one occupancy refresh of `config`'s NGP model: one a
+    slab of `occ_lib.update_grid`'s chunk of the points it refreshes, every
+    cell of every cascade at a warmup refresh, else
+    `occupancy_cells_per_update` a cascade."""
+    defaults = inspect.signature(HashGridModel).parameters
+    mp = config.model_params
+    cascades = occ_lib.num_cascades(mp.get("scale", defaults["scale"].default))
+    cells = mp.get("grid_resolution", defaults["grid_resolution"].default) ** 3
+    per_cascade = cells if warmup else min(config.occupancy_cells_per_update, cells)
+    chunk = inspect.signature(occ_lib.update_grid).parameters["chunk"].default
+    return -(-cascades * per_cascade // chunk)
+
+
+def _refresh_chunks(config, steps):
+    """K4 launches of the occupancy refreshes of a train run of `steps`
+    steps from step 0, at the loop's cadence: a refresh falls due before
+    the first step of a dispatch once `occupancy_update_every` steps have
+    passed since the last, and sweeps every cell below
+    `occupancy_warmup_steps`."""
+    every, fuse = config.occupancy_update_every, max(1, config.steps_per_dispatch)
+    chunks, due, step = 0, 0, 0
+    while step < steps:
+        if step >= due:
+            chunks += _sweep_chunks(config, step < config.occupancy_warmup_steps)
+            due = (step // every + 1) * every
+        step += min(fuse, steps - step)
+    return chunks
+
+
+@contextlib.contextmanager
+def _counting_field_calls(model):
+    """Yields [n]: the calls of an NGP model's field (one osplit encode
+    each) while the context is open; [0] for any other model."""
+    calls = [0]
+    if not isinstance(model, HashGridModel):
+        yield calls
+        return
+    field = model.field
+    forward = field.forward
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return forward(*args, **kwargs)
+
+    field.forward = counted
+    try:
+        yield calls
+    finally:
+        del field.forward
 
 
 def _occupied_share(model):
@@ -1432,7 +1614,7 @@ def phase_ngp_train(exp_dir):
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = _launches()
-    want = _ngp_launches(NGP_STEPS)
+    want = _ngp_launches(NGP_STEPS, _refresh_chunks(config, NGP_STEPS))
     if launches != want:
         raise AssertionError(f"expected {want} launches in {NGP_STEPS} NGP steps, got {launches}")
     if scan_shapes != {OSPLIT_SCAN_PATH}:
@@ -1444,21 +1626,25 @@ def phase_ngp_train(exp_dir):
     steady = statistics.median(plain_steps)
     share_trained = _occupied_share(model)
 
-    # The two kinds of refresh on their own, through the loop's update function.
+    # The two kinds of refresh on their own, through the loop's update
+    # function: one K4 a chunk of the sweep, and no backward.
     update = step_lib.make_occupancy_update_fn(config, model)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    refresh_ms = {}
+    refresh_ms, k4_refresh = {}, {}
     for kind, warmup in (("warmup", True), ("sampled", False)):
         torch.cuda.synchronize()
+        _reset_launches()
         t0 = time.perf_counter()
         grid = update(model.occupancy, gen, warmup)
         torch.cuda.synchronize()
         refresh_ms[kind] = 1e3 * (time.perf_counter() - t0)
+        k4_refresh[kind] = _sweep_chunks(config, warmup)
+        if _launches() != _only(K4=k4_refresh[kind]):
+            raise AssertionError(f"a {kind} refresh launched {_launches()}, expected "
+                                 f"{k4_refresh[kind]} K4 and no backward")
         if not torch.isfinite(grid).all():
             raise AssertionError(f"non-finite grid after a {kind} refresh")
     model.occupancy.copy_(grid)  # keep the sampled refresh, as the loop would
-    if _launches() != launches:
-        raise AssertionError(f"a refresh launched {_launches()}: it should run no backward")
     points = ngp_points(model, config.batch_size)
     step_tflop = 3 * ngp_forward_flops(model, config.batch_size) / 1e12
     emit({"phase": "ngp_train", "config": NGP_CONFIG, "steps": NGP_STEPS,
@@ -1474,6 +1660,8 @@ def phase_ngp_train(exp_dir):
           "mlp_tflop_per_step": step_tflop,
           "max_memory_allocated_bytes": peak,
           "launches": launches, "scan_shapes": sorted(scan_shapes),
+          "k4_launches": {"train": launches["K4"], "per_step_forward": 1,
+                          "per_refresh": k4_refresh},
           "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")},
           "grad_norm": history[-1]["grad_norm"]})
     return config, model, launches, step_tflop
@@ -1484,7 +1672,7 @@ def phase_ngp_render(config, model):
     # exp/pow sum and round in another order on the card: 1e-3 on rgb in
     # [0, 1], relative 1e-3 on distances.
     out = _render_check(config, model, ngp_forward_flops,
-                        lambda chunks: _only(K1a=chunks), "ngp_render", 1e-3)
+                        lambda chunks, _: _only(K1a=chunks, K4=chunks), "ngp_render", 1e-3)
     emit(_without_image(out))
     return out["launches"]
 
@@ -1637,9 +1825,9 @@ def phase_kitti(root):
 
     config = load_config(NGP_CONFIG, [f"scene_dir={scene}", f"exp_dir={os.path.join(root, 'ngp')}",
                                       f"max_steps={NGP_STEPS}", "print_every=1"])
-    model, history, _, ngp = _kitti_run(
-        config, "kitti ngp", _ngp_launches(NGP_STEPS),
-        _only(K1a=chunks))
+    ngp_train = _ngp_launches(NGP_STEPS, _refresh_chunks(config, NGP_STEPS))
+    model, history, _, ngp = _kitti_run(config, "kitti ngp", ngp_train,
+                                        _only(K1a=chunks, K4=chunks))
     _check_history(history, NGP_STEPS)
     out["ngp"] = dict(ngp, rm_s=history[-1]["rm_s"], vr_s=history[-1]["vr_s"],
                       occupied_share=_occupied_share(model))
@@ -1649,8 +1837,8 @@ def phase_kitti(root):
     # batches before the dataplane: its steps beside the dataplane's.
     numpy_config = config.replace(exp_dir=os.path.join(root, "ngp_numpy"),
                                   use_native_batcher=False)
-    _, history, _, numpy_ngp = _kitti_run(numpy_config, "kitti ngp numpy batches",
-                                          _ngp_launches(NGP_STEPS), _only(K1a=chunks))
+    _, history, _, numpy_ngp = _kitti_run(numpy_config, "kitti ngp numpy batches", ngp_train,
+                                          _only(K1a=chunks, K4=chunks))
     _check_history(history, NGP_STEPS)
     launches["kitti_ngp_numpy"] = numpy_ngp["train_launches"]
     refresh = set(range(0, NGP_STEPS, config.occupancy_update_every))
@@ -1706,7 +1894,7 @@ def phase_nerfpp(root):
     # Float32 8x256 matmuls sum in another order on the card, and the
     # inverse-CDF resampling passes that on: 1e-3 on rgb in [0, 1],
     # relative 1e-3 on depths.
-    render = _render_check(config, model, nerfpp_mfu.forward_flops, lambda chunks: _only(),
+    render = _render_check(config, model, nerfpp_mfu.forward_flops, lambda chunks, _: _only(),
                            "nerfpp_render", 1e-3, batch=test.image_batch(0))
     render["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit(_without_image(render))
@@ -1846,7 +2034,7 @@ def phase_bf16_synthetic(train_ms_f32):
     # layers of width 1024 and the resampling: 2e-2 on rgb in [0, 1],
     # relative 5e-2 on distances.
     render = _render_check(config, model, mlp_forward_flops,
-                           lambda chunks: _only(K1a=3 * chunks), "bf16_mip16k_render", 5e-2,
+                           lambda chunks, _: _only(K1a=3 * chunks), "bf16_mip16k_render", 5e-2,
                            rgb_atol=2e-2)
     launches["bf16_mip16k_render"] = render["launches"]
     out["mip16k_render"] = _without_image(render)
@@ -1874,7 +2062,7 @@ def phase_bf16_synthetic(train_ms_f32):
         config = _ngp_config(exp_dir).replace(compute_dtype="bfloat16")
         model, history, counted, seconds, peak = _train_phase(
             config, _scene(config, "train", 0), scan_shapes)
-    want = _ngp_launches(NGP_STEPS)
+    want = _ngp_launches(NGP_STEPS, _refresh_chunks(config, NGP_STEPS))
     if counted != want or scan_shapes != {OSPLIT_SCAN_PATH}:
         raise AssertionError(f"bf16 NGP: expected {want} at {OSPLIT_SCAN_PATH}, got {counted} at "
                              f"{scan_shapes}")
@@ -1892,8 +2080,9 @@ def phase_bf16_synthetic(train_ms_f32):
                   "scan_shapes": sorted(scan_shapes)}
     # The same bf16 tables and marching; bf16 width-64 matmuls round in
     # another order on the card: 2e-2 on rgb, relative 5e-2 on distances.
-    render = _render_check(config, model, ngp_forward_flops, lambda chunks: _only(K1a=chunks),
-                           "bf16_ngp_render", 5e-2, rgb_atol=2e-2)
+    render = _render_check(config, model, ngp_forward_flops,
+                           lambda chunks, _: _only(K1a=chunks, K4=chunks), "bf16_ngp_render", 5e-2,
+                           rgb_atol=2e-2)
     launches["bf16_ngp_render"] = render["launches"]
     out["ngp_render"] = _without_image(render)
     del model
@@ -1924,7 +2113,7 @@ def phase_bf16_nerfpp(root):
     test = datasets_lib.NerfppSceneDataset(scene, "test", config.batch_size)
     # bf16 8x256 matmuls round in another order on the card, and the
     # inverse-CDF resampling passes that on: 2e-2 on rgb, relative 5e-2 on depths.
-    render = _render_check(config, model, nerfpp_mfu.forward_flops, lambda chunks: _only(),
+    render = _render_check(config, model, nerfpp_mfu.forward_flops, lambda chunks, _: _only(),
                            "bf16_nerfpp_render", 5e-2, batch=test.image_batch(0), rgb_atol=2e-2)
     emit({"phase": "bf16", "nerfpp": {
         "config": NERFPP_CONFIG, "compute_dtype": "bfloat16", "batch": config.batch_size,
@@ -1964,8 +2153,11 @@ def phase_ngp_eval(config, model):
     batch = test.image_batch(0)
     n_rays = test.height * test.width
     iterative = config.replace(ngp_eval_renderer="iterative")
-    check = _render_check(iterative, model, ngp_forward_flops, lambda chunks: _only(),
-                          "ngp_eval_render", 1e-3, batch=batch)
+    # One K4 a round that runs the field (a round with no occupied candidate
+    # runs none).
+    check = _render_check(iterative, model, ngp_forward_flops,
+                          lambda chunks, field_calls: _only(K4=field_calls), "ngp_eval_render",
+                          1e-3, batch=batch)
     rounds = sorted({int(r) for r in np.unique(check["render"]["rounds"])})
     samples = check["render"]["samples_per_ray"]
     it_ms = check["median_ms"]
@@ -2679,7 +2871,8 @@ def phase_eval_render(root, kitti_mip_eval):
             for kind in render_tool.PATHS]
     runs += [(f"ellipse_{TALL_HEIGHT}_rows", mip_config_path, "ellipse", TALL_FRAMES,
               _only(K1a=3 * tall_chunks), (f"render_height={TALL_HEIGHT}",)),
-             ("ngp_ellipse", ngp_config_path, "ellipse", NGP_PATH_FRAMES, _only(K1a=ngp_chunks), ())]
+             ("ngp_ellipse", ngp_config_path, "ellipse", NGP_PATH_FRAMES,
+              _only(K1a=ngp_chunks, K4=ngp_chunks), ())]
     out["paths"] = {}
     for label, config_path, kind, frames, per_frame, extra in runs:
         out["paths"][label], counts = _path_run(config_path, kind, frames, per_frame, label, extra)
@@ -2689,8 +2882,8 @@ def phase_eval_render(root, kitti_mip_eval):
     model, _ = step_lib.load_checkpoint(config)
     pose = render_tool.camera_path(build_dataset(config, "train"), "ellipse", PATH_FRAMES)[0]
     batch = render_tool.frame_batch(pose, test.pixtocams, HEIGHT, WIDTH, test.near, test.far)
-    check = _render_check(config, model.to("cuda"), mlp_forward_flops, lambda c: _only(K1a=3 * c),
-                          "eval_render_frame", 1e-3, batch=batch)
+    check = _render_check(config, model.to("cuda"), mlp_forward_flops,
+                          lambda c, _: _only(K1a=3 * c), "eval_render_frame", 1e-3, batch=batch)
     out["frame_cpu_reference"] = check["cpu_reference"]
     out["launches"] = launches["eval_render"]
     emit(out)
@@ -2709,7 +2902,8 @@ def _same_arrays(got, want):
 def phase_viewer(root):
     """tools.viewer on phase kitti's checkpoints: orbit views rendered by
     render_view on the card, each equal bit for bit to render_image on the
-    same rays, with its K1a launches; the frusta PNG of the fixture's
+    same rays, with its K1a launches and, for NGP, one K4 a render chunk;
+    the frusta PNG of the fixture's
     cameras through the CLI. The K1a shapes of the renders are held
     against the plain version after them."""
     height, width = VIEWER_SIZE
@@ -2722,7 +2916,8 @@ def phase_viewer(root):
         model, step = step_lib.load_checkpoint(config)
         model = model.to("cuda")
         cam = viewer.orbit_around(dataset.camtoworlds)
-        expect = _only(K1a=per_chunk * math.ceil(height * width / config.render_chunk_size))
+        chunks = math.ceil(height * width / config.render_chunk_size)
+        expect = _only(K1a=per_chunk * chunks, K4=chunks if label == "ngp" else 0)
         views, counted = [], _only()
         for d_theta, d_phi in orbits:
             cam.orbit(d_theta, d_phi)
@@ -2847,7 +3042,8 @@ def phase_lpips():
 def _gate_launches(name, config, test_views, hash_layout="osplit"):
     """Launches of one gate's train and eval: mip 3 K1a + 3 K1b a step (one
     a level) and 3 K1a a render chunk; NGP 1 + 1 a step and 1 K1a a chunk,
-    with the table gradient's 1 K3a, 1 K2b and 1 K3b a step on osplit, 1
+    with the table gradient's 1 K3a, 1 K2b and 1 K3b a step and the
+    forward's 1 K4 a step, a refresh chunk and a render chunk on osplit, 1
     K2a a step on oct and none on corner; NeRF++ none."""
     steps = config.max_steps
     chunks = test_views * math.ceil(64 * 96 / config.render_chunk_size)
@@ -2855,8 +3051,9 @@ def _gate_launches(name, config, test_views, hash_layout="osplit"):
         levels = config.model_params["num_levels"]
         return _only(K1a=levels * (steps + chunks), K1b=levels * steps)
     if name == "ngp":
-        grad = {"osplit": dict(K2b=steps, K3a=steps, K3b=steps), "oct": dict(K2a=steps),
-                "corner": {}}[hash_layout]
+        grad = {"osplit": dict(K2b=steps, K3a=steps, K3b=steps,
+                               K4=steps + _refresh_chunks(config, steps) + chunks),
+                "oct": dict(K2a=steps), "corner": {}}[hash_layout]
         return _only(K1a=steps + chunks, K1b=steps, **grad)
     return _only()
 
@@ -2918,9 +3115,9 @@ def phase_blender(root):
     scan_shapes = set()
     model, history, launches, seconds, peak = _train_phase(config, dataset, scan_shapes,
                                                            max_steps=BLENDER_STEPS)
-    if launches != _ngp_launches(BLENDER_STEPS):
-        raise AssertionError(f"blender: launches {launches}, expected "
-                             f"{_ngp_launches(BLENDER_STEPS)}")
+    want = _ngp_launches(BLENDER_STEPS, _refresh_chunks(config, BLENDER_STEPS))
+    if launches != want:
+        raise AssertionError(f"blender: launches {launches}, expected {want}")
     # No sample budget: K2b scans every slot of the batch at every level, a
     # shape the kernel is held at in phase kernels.
     scan_path = (NGP_LEVELS, ngp_points(model, config.batch_size), SCAN_PATH[1])
@@ -2940,8 +3137,9 @@ def phase_blender(root):
     eval_seconds = time.perf_counter() - t0
     chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
     eval_launches = _launches()
-    if eval_launches != _only(K1a=chunks):
-        raise AssertionError(f"blender eval: launches {eval_launches}, expected {chunks} K1a")
+    if eval_launches != _only(K1a=chunks, K4=chunks):
+        raise AssertionError(f"blender eval: launches {eval_launches}, expected {chunks} K1a "
+                             f"and K4")
     if len(per_image) != BLENDER_TEST or not all(
             math.isfinite(mean[k]) for k in ("psnr", "ssim")):
         raise AssertionError(f"blender eval: {len(per_image)} views, {mean}")
@@ -2976,8 +3174,9 @@ def phase_public_bench(root):
     the Blender layout phase blender wrote, as a one-scene suite: NGP in
     bf16 at the suite's batch 16384, 8 steps a dispatch, for PUBLIC_STEPS
     steps, then its test views; the summary's metrics, ms a step from the
-    loop's log lines and the launches (1 K1a, 1 K1b, 1 K3a, 1 K2b and 1 K3b
-    a step, 1 K1a a render chunk); the kernels' shapes on that run held
+    loop's log lines and the launches (1 K1a, 1 K1b, 1 K3a, 1 K2b, 1 K3b
+    and 1 K4 a step, 1 K4 a refresh chunk, 1 K1a and 1 K4 a render chunk);
+    the kernels' shapes on that run held
     against the plain version after it (K3a and K3b at their launch keys,
     `_hold_grad_launches`)."""
     summary_path = os.path.join(root, "public_bench.json")
@@ -2998,7 +3197,8 @@ def phase_public_bench(root):
     seconds = time.perf_counter() - t0
     counted = _launches()
     chunks = BLENDER_TEST * math.ceil(BLENDER_SIZE**2 / config.render_chunk_size)
-    expect = dict(_ngp_launches(PUBLIC_STEPS), K1a=PUBLIC_STEPS + chunks)
+    expect = dict(_ngp_launches(PUBLIC_STEPS, _refresh_chunks(config, PUBLIC_STEPS) + chunks),
+                  K1a=PUBLIC_STEPS + chunks)
     if counted != expect:
         raise AssertionError(f"public_bench: launches {counted}, expected {expect}")
     scan_path = (NGP_LEVELS, config.batch_size * config.model_params["max_samples"],
@@ -3042,7 +3242,7 @@ def _probe_record(label, result, expect):
 
 def phase_bench_probes():
     """Every bench probe once at full width: ngp_step (1 K1a, 1 K1b, 1 K3a,
-    1 K2b and 1 K3b a step), ngp_bwd (one K2a a call of the scan, the bf16 and factored
+    1 K2b, 1 K3b and 1 K4 a step, 1 K4 a chunk of its sampled refreshes), ngp_bwd (one K2a a call of the scan, the bf16 and factored
     variants and the whole backward, none elsewhere), ngp_eval (K1a only on
     the dense renderer, one a call), and the NeRF++ probes (no kernel). The
     shapes that each NGP probe launched its kernels at are held against the
@@ -3057,7 +3257,8 @@ def phase_bench_probes():
     launches["bench_probes_ngp_step"] = _probe_record(
         "ngp_step", dict(result, seconds_with_setup=time.perf_counter() - t0,
                          path_shapes=_hold_path_shapes(shapes)),
-        _ngp_launches(steps))
+        _ngp_launches(steps, result["refreshes"] * _sweep_chunks(
+            workloads.ngp_bench_config(result["batch"], result["max_samples"]), False)))
     torch.cuda.empty_cache()
 
     shapes = {}
@@ -3209,8 +3410,10 @@ def phase_depth_losses(root):
             if config.lambda_depth <= 0:
                 raise AssertionError(f"{config_path}: no depth supervision")
             model, history, run_launches, seconds, _ = _train_phase(config)
-            want = {"mip": _only(K1a=3 * steps, K1b=3 * steps), "ngp": _ngp_launches(steps),
-                    "nerfpp": _only()}[backend]
+            if backend == "ngp":
+                want = _ngp_launches(steps, _refresh_chunks(config, steps))
+            else:
+                want = _only(K1a=3 * steps, K1b=3 * steps) if backend == "mip" else _only()
             if run_launches != want:
                 raise AssertionError(f"{backend} {kind}: launches {run_launches}, expected {want}")
             _check_history(history, steps)
@@ -3383,7 +3586,7 @@ def phase_ngp_layouts(root):
                             {"optimize_ext": True, "num_images": KITTI_VIEWS},
                             {"rgb_activation": "none"})
     model, history, run_launches, seconds, peak = _train_phase(config)
-    if run_launches != _ngp_launches(NGP_STEPS):
+    if run_launches != _ngp_launches(NGP_STEPS, _refresh_chunks(config, NGP_STEPS)):
         raise AssertionError(f"hdr_ext: launches {run_launches}")
     _check_history(history, NGP_STEPS)
     pose_grad = model.pose_dT.weight.grad
@@ -3399,9 +3602,15 @@ def phase_ngp_layouts(root):
            "losses": {k: v for k, v in history[-1].items() if k.startswith("loss")}}
     for renderer in ("train", "iterative"):
         _reset_launches()
-        mean, per_image = evaluate(config.replace(ngp_eval_renderer=renderer), model,
-                                   device="cuda", log_fn=lambda line: None)
-        want = _only(K1a=chunks if renderer == "train" else 0)
+        with _counting_field_calls(model) as field_calls:
+            mean, per_image = evaluate(config.replace(ngp_eval_renderer=renderer), model,
+                                       device="cuda", log_fn=lambda line: None)
+        # One K4 a field call: a render chunk's, or a round's that met an
+        # occupied candidate.
+        if renderer == "train" and field_calls[0] != chunks:
+            raise AssertionError(f"hdr_ext train eval: {field_calls[0]} field calls, expected "
+                                 f"{chunks}")
+        want = _only(K1a=chunks if renderer == "train" else 0, K4=field_calls[0])
         if _launches() != want or len(per_image) != KITTI_TEST_VIEWS or \
                 not all(math.isfinite(mean[k]) for k in ("psnr", "rmse")):
             raise AssertionError(f"hdr_ext {renderer} eval: {_launches()}, {mean}")
@@ -3598,12 +3807,15 @@ def phase_mip_options(root):
                                  ("nerfpp", NERFPP_CONFIG, "nerfpp"),
                                  ("ngp", NGP_CONFIG, "dtu_format")):
         steps = OPTION_SHORT_STEPS
-        expect = {"mip": k1(steps), "nerfpp": _only(), "ngp": _ngp_launches(steps)}[backend]
         key = "median_step_ms_without_refresh" if backend == "ngp" else "median_step_ms_after_first"
         own = load_config(path).data_loss_type
         for kind in (own, "rawnerf"):
             label = f"{backend}_{kind}"
             config = _options_config(root, label, steps, path, scene, data_loss_type=kind)
+            if backend == "ngp":
+                expect = _ngp_launches(steps, _refresh_chunks(config, steps))
+            else:
+                expect = k1(steps) if backend == "mip" else _only()
             model, record = _options_run(label, config, expect, steps, ngp=backend == "ngp")
             if not math.isfinite(record["losses_last_step"]["loss_data"]):
                 raise AssertionError(f"mip_options {label}: non-finite data loss")
@@ -3814,7 +4026,8 @@ def _ddp_worker_nccl(workdir):
     ngp_argv = ["--no-eval", "--config", NGP_CONFIG, "dataset=synthetic",
                 f"max_steps={DDP_CLI_STEPS}", "print_every=1"]
     out["ngp"] = _ddp_cli_run(ngp_argv, os.path.join(workdir, "nccl_ngp"), 8192)
-    if out["ngp"]["launches"] != _ngp_launches(DDP_CLI_STEPS):
+    if out["ngp"]["launches"] != _ngp_launches(
+            DDP_CLI_STEPS, _refresh_chunks(load_config(NGP_CONFIG), DDP_CLI_STEPS)):
         raise AssertionError(f"nccl ngp: launches {out['ngp']['launches']}")
     config = load_config(CONFIG)
     out["allreduce"] = _allreduce_ms(step_lib.build_model(config).to(device))
@@ -4009,7 +4222,7 @@ def _timed_summary(timed):
 
 def ddp_worker(part, workdir):
     """A rank of phase ddp (launched by `_ddp_spawn` through torchrun), with
-    the K3a and K3b launch keys it ran at, for the parent to check."""
+    the K4, K3a and K3b launch keys it ran at, for the parent to check."""
     _record_grad_launches()
     out = {"nccl": _ddp_worker_nccl, "gloo": _ddp_worker_gloo}[part](workdir)
     out["grad_launched"] = _grad_launched_lists()
@@ -4127,7 +4340,7 @@ def summary(k, launches):
                  f"T 2^{GRAD_PATH[2]}, F {GRAD_PATH[3]}")
     unchecked = {kid: GRAD_LAUNCHED[kid] - GRAD_CHECKED[kid] for kid in GRAD_LAUNCHED}
     if any(unchecked.values()):
-        raise AssertionError(f"K3 launched at keys no check covered: {unchecked}")
+        raise AssertionError(f"K3 or K4 launched at keys no check covered: {unchecked}")
     for kid, name in (("K3a", "K3a osplit_grad_products"), ("K3b", "K3b osplit_grad_fold")):
         grad_errors = dict(k["grad_errors"][kid], **PATH_SHAPE_ERRORS[kid])
         kernels.append(dict(
@@ -4137,6 +4350,22 @@ def summary(k, launches):
             launches=on_path(kid), launches_by_phase=by_phase(kid), library_ms=None,
             max_abs_err=max(grad_errors.values()), checked_shapes=sorted(grad_errors),
             work=grad_work))
+    encode_errors = dict(k["grad_errors"]["K4"], **PATH_SHAPE_ERRORS["K4"])
+    view_chunk, train_step = (_encode_key_name(key) for key in ENCODE_TIMED[::-1])
+    kernels.append(dict(
+        k["grad_timing"]["K4"][view_chunk], name="K4 osplit_encode", route="cuda",
+        source=GRAD_SOURCE, replaces=None,
+        replaces_note="no TPU kernel: the reference's packed bf16 tables and per-level gathers "
+                      "(`ops/hashgrid.py:build_oct_tables_split`, `encode_oct_split`)",
+        launches=on_path("K4"), launches_by_phase=by_phase("K4"),
+        launch_keys=len(GRAD_CHECKED["K4"]),
+        launches_note="NGP runs on the osplit layout (the default): one a train step's "
+                      "forward, a refresh chunk and a train-renderer chunk, one an iterative "
+                      "renderer's round that runs the field; per rank",
+        library_ms=None, max_abs_err=max(encode_errors.values()),
+        checked_shapes=sorted(encode_errors),
+        work=f"one NGP view chunk: {ENCODE_TIMED[1][0]} points, {NGP_LEVELS} levels, T 2^19, F 2",
+        with_table_gradient=k["grad_timing"]["K4"][train_step]))
     for kid, name, line, extra in (("P1", "P1 chunk_take", 111, {}),
                                    ("P2", "P2 onehot_extract", 158, {"redesigned": "PR 4"})):
         # Timing keys (ms, plain_ms, library_ms, bound_ms, bound_by) and shape.

@@ -219,7 +219,8 @@ class HashGridModel(nn.Module):
         return self.field.density(x, prepared=prepared)[0]
 
     def prepare_tables(self):
-        """The packed hash tables, built once for a sweep of frozen weights."""
+        """The packed hash tables, built once for a sweep of frozen weights
+        (None where the encoding packs nothing, as the osplit layout)."""
         return self.field.encoder.prepare()
 
     def forward(
@@ -362,7 +363,8 @@ class HashGridModel(nn.Module):
         rgb_acc = torch.zeros(t_near.shape + (3,), device=t_near.device)
         depth, acc = torch.zeros_like(t_near), torch.zeros_like(t_near)
         n_samples = torch.zeros(t_near.shape, dtype=torch.int64, device=t_near.device)
-        # The packed tables, built once: the weights are frozen for the render.
+        # The packed tables, built once (the weights are frozen for the render);
+        # none for osplit, whose forward reads the canonical table.
         prepared = self.prepare_tables()
         offsets = torch.arange(n_cand + 1, dtype=torch.float32, device=t_near.device)
         rounds = 0

@@ -17,6 +17,11 @@ Port of the reference package's `ops/hashgrid.py`. Four table layouts:
   4F lanes, [L, T, 4F]). The three share the hash, so their trained tables
   are interchangeable; corner's are not.
 
+On the card the osplit forward builds no physical table: CUDA kernel K4
+(`ops/hashgrid_grad.py`) reads the canonical table and computes every level
+of every point in one launch, bit for bit what `encode_oct_split` computes
+from the packed bf16 tables, which stay the plain twin on the CPU.
+
 The hashes are computed in int64 and masked with T - 1. The reference
 multiplies uint32 values with wraparound; T is a power of two dividing
 2^32, so the low bits of the exact int64 products (and of their XOR) are
@@ -24,7 +29,8 @@ the same.
 
 `grad_mode` "sorted" and "auto" take the reference's scatter-free
 sorted-segment table gradient on every device; "scatter" differentiates the
-gathers with autograd (an accumulating index_put), as does `pack_rows`.
+gathers with autograd (an accumulating index_put), as does `pack_rows`,
+except osplit's on the card, which K4 encodes and which refuses it.
 The sorted gradients:
 
 - osplit: each product w*g rounded to bf16, sorted by physical row within
@@ -311,20 +317,26 @@ def encode_oct(x, table, resolutions, table_size: int, phys=None):
     return _blend_levels(rows.reshape(rows.shape[:-1] + (8, table.shape[-1])), w_all)
 
 
-def _level_feats(rows, n_feats: int) -> torch.Tensor:
-    """Per-level gathered bf16 rows [..., 8F] -> f32 corner features [..., L, 8, F]."""
-    feats = torch.stack(rows, dim=-2).to(torch.float32)
-    return feats.reshape(feats.shape[:-1] + (8, n_feats))
+def _level_feats(rows: torch.Tensor, n_feats: int) -> torch.Tensor:
+    """Gathered bf16 rows [..., L, 8F] -> f32 corner features [..., L, 8, F]."""
+    return rows.to(torch.float32).reshape(rows.shape[:-1] + (8, n_feats))
 
 
-def encode_oct_split(x, table, resolutions, table_size: int, phys=None):
-    """Hash-encode unit-cube points [..., 3] -> [..., L*F] through the
-    per-level bf16 physical tables (`phys` from `build_oct_tables_split`, or
-    built here)."""
+def _oct_split_gather(x, table, resolutions, table_size: int):
+    """(row ids per level, w [..., L, 8], the gathered bf16 rows [..., L, 8F])
+    of unit-cube points [..., 3] in the per-level physical tables
+    (`build_oct_tables_split`)."""
     idx_levels, w_all = _oct_local_indices_weights(x, resolutions, table_size)
-    if phys is None:
-        phys = build_oct_tables_split(table, resolutions, table_size)
-    rows = [phys[level][idx] for level, idx in enumerate(idx_levels)]
+    phys = build_oct_tables_split(table, resolutions, table_size)
+    rows = torch.stack([phys[level][idx] for level, idx in enumerate(idx_levels)], dim=-2)
+    return idx_levels, w_all, rows
+
+
+def encode_oct_split(x, table, resolutions, table_size: int):
+    """Hash-encode unit-cube points [..., 3] -> [..., L*F] through the
+    per-level bf16 physical tables: the plain osplit forward, which K4
+    computes bit for bit on the card."""
+    _, w_all, rows = _oct_split_gather(x, table, resolutions, table_size)
     return _blend_levels(_level_feats(rows, table.shape[-1]), w_all)
 
 
@@ -460,17 +472,22 @@ def _oct_table_grad(idx: torch.Tensor, w_all: torch.Tensor, g_lf: torch.Tensor, 
     return _fold_oct_levels(seg, resolutions, table_size, g_lf.shape[-1])
 
 
-def _sorted_level_keys(idx_levels, table_size: int):
-    """(sorted keys, order) of all levels' row ids offset by l T: level l's P
-    entries fill positions l P to (l + 1) P of one sort, by physical row.
-    The keys are int32, half the radix passes of int64; the level offsets
-    are made on the device."""
+def _level_keys(idx_levels, table_size: int) -> torch.Tensor:
+    """int32 [L, P]: each level's row ids offset by l T, the keys of the
+    backward's one sort (K4 writes them on the card). int32 keys take half
+    the radix passes of int64; the level offsets are made on the device."""
     n_levels = len(idx_levels)
     if n_levels * table_size > torch.iinfo(torch.int32).max:
         raise ValueError(f"{n_levels} levels of {table_size} rows overflow the int32 sort keys")
     keys = torch.stack([i.reshape(-1) for i in idx_levels]).to(torch.int32)
     keys += torch.arange(0, n_levels * table_size, table_size, dtype=torch.int32,
                          device=keys.device)[:, None]
+    return keys
+
+
+def _sorted_level_keys(keys: torch.Tensor):
+    """(sorted keys, order) of the level-offset keys [L, P]: level l's P
+    entries fill positions l P to (l + 1) P of one sort, by physical row."""
     return torch.sort(keys.reshape(-1))
 
 
@@ -481,16 +498,17 @@ def _level_segment_ends(sorted_keys: torch.Tensor, n_levels: int, table_size: in
     return torch.searchsorted(sorted_keys, rows, right=True, out_int32=True)
 
 
-def _oct_split_table_grad(idx_levels, w_all: torch.Tensor, g_lf: torch.Tensor, resolutions,
-                          table_size: int) -> torch.Tensor:
+def _oct_split_table_grad(keys: torch.Tensor, w_all: torch.Tensor, g_lf: torch.Tensor,
+                          resolutions, table_size: int) -> torch.Tensor:
     """The osplit table gradient [L, T, F] in one pass over all levels: one
-    sort of the level-offset row ids, their bf16-rounded products in that
-    order by K3a ([L, P, 8F]), each level's prefix sums by one K2b launch,
-    the segment ends by one `searchsorted`, and the row sums folded back
-    onto the canonical rows by K3b, which takes the levels' corner offsets
-    and row counts by value: nothing waits for the device."""
+    sort of the level-offset row keys [L, P] (`_level_keys`), their
+    bf16-rounded products in that order by K3a ([L, P, 8F]), each level's
+    prefix sums by one K2b launch, the segment ends by one `searchsorted`,
+    and the row sums folded back onto the canonical rows by K3b, which
+    takes the levels' corner offsets and row counts by value: nothing waits
+    for the device."""
     n_levels, n_feats = g_lf.shape[-2:]
-    sorted_keys, order = _sorted_level_keys(idx_levels, table_size)
+    sorted_keys, order = _sorted_level_keys(keys)
     vals = hashgrid_grad.sorted_products(order, w_all.reshape(-1, n_levels, 8),
                                          g_lf.reshape(-1, n_levels, n_feats))
     csum = prefix_scan.cumsum_batched(vals)
@@ -531,32 +549,93 @@ def _cotangent(g: torch.Tensor, n_levels: int, n_feats: int) -> torch.Tensor:
 # ---- sorted-gradient encodings ------------------------------------------
 
 
+def _oct_split_forward_plain(x, table, resolutions, table_size: int, dtype=torch.float32,
+                             keys: bool = False, rows: bool = False):
+    """K4's plain twin on points x [P, 3]: (features [P, L F] in `dtype` as
+    `encode_oct_split` computes them, the level-offset row keys [L, P] and
+    the weights [P, L, 8] if `keys`, the gathered bf16 corner rows [P, L,
+    8F] if `rows`; None for what is not asked for)."""
+    idx_levels, w_all, gathered = _oct_split_gather(x, table, resolutions, table_size)
+    out = _blend_levels(_level_feats(gathered, table.shape[-1]), w_all).to(dtype)
+    level_keys = _level_keys(idx_levels, table_size) if keys else None
+    return out, level_keys, w_all if keys else None, gathered if rows else None
+
+
+def _oct_split_forward(x, table, resolutions, table_size: int, dtype=torch.float32,
+                       keys: bool = False, rows: bool = False):
+    """(features [..., L F] in `dtype`, keys [L, P], w_all [P, L, 8], rows
+    [P, L, 8F] or None each) of points [..., 3] (P of them): one K4 launch
+    over all levels on the card, which takes each level's dense stride and
+    the row offsets of its corner pairs by value; its plain twin on the CPU.
+    Counts the levels it encodes in one pass (`hashgrid.fwd_levels`)."""
+    n_levels, _, n_feats = table.shape
+    points = x.reshape(-1, 3)
+    if table.is_cuda:
+        # Corners 2k and 2k + 1 differ in z alone: rows o and o + 1.
+        strides = [int(r) + 1 if _is_dense(int(r), table_size) else 0 for r in resolutions]
+        pairs = [o for r in resolutions for o in _oct_offsets(int(r), table_size)[::2]]
+        out, *saved = hashgrid_grad.oct_split_encode_cuda(
+            points.contiguous(), table.contiguous(), resolutions, strides, pairs, dtype, keys,
+            rows)
+    elif table.device.type == "cpu":
+        out, *saved = _oct_split_forward_plain(points, table, resolutions, table_size, dtype,
+                                               keys, rows)
+    else:
+        raise ValueError(f"no osplit encode implementation on {table.device}")
+    tracing.count("hashgrid.fwd_levels", n_levels)
+    return (out.reshape(x.shape[:-1] + (n_levels * n_feats,)), *saved)
+
+
+def encode_osplit(x, table, resolutions, table_size: int, dtype=torch.float32,
+                  sorted_grad: bool = True):
+    """The osplit encode as the module runs it, features in `dtype`.
+
+    Without a gradient, the features alone, nothing kept (a Function cannot
+    tell: its `needs_input_grad` reads requires_grad, also under no_grad).
+    Under autograd the sorted mode runs OctSplitEncode, which keeps what its
+    backward reads; the scatter mode differentiates `encode_oct_split`'s
+    gathers, on the CPU only: on the card every osplit encode is K4, which
+    keeps no gather to differentiate.
+    """
+    if not (torch.is_grad_enabled() and (x.requires_grad or table.requires_grad)):
+        return _oct_split_forward(x, table, resolutions, table_size, dtype)[0]
+    if sorted_grad:
+        return OctSplitEncode.apply(x, table, resolutions, table_size, dtype)
+    if table.is_cuda:
+        raise ValueError("grad_mode='scatter' takes the osplit layout on the CPU only; on the "
+                         "card use grad_mode 'auto' or 'sorted', or another layout")
+    return encode_oct_split(x, table, resolutions, table_size).to(dtype)
+
+
 class OctSplitEncode(torch.autograd.Function):
-    """encode_oct_split with the sorted-segment table gradient over all
-    levels in one pass (one sort, K3a, one K2b launch, K3b)."""
+    """encode_oct_split (K4 on the card) with the sorted-segment table
+    gradient over all levels in one pass (one sort, K3a, one K2b launch,
+    K3b). The forward keeps the level-offset row keys and the weights where
+    the table needs a gradient, the bf16 corner rows where the points do."""
 
     @staticmethod
-    def forward(ctx, x, table, resolutions, table_size):
-        idx_levels, w_all = _oct_local_indices_weights(x, resolutions, table_size)
-        phys = build_oct_tables_split(table, resolutions, table_size)
-        rows = [phys[level][idx] for level, idx in enumerate(idx_levels)]  # bf16 residuals
-        ctx.save_for_backward(x, w_all, *idx_levels, *rows)
+    def forward(ctx, x, table, resolutions, table_size, dtype=torch.float32):
+        want_x, want_table = ctx.needs_input_grad[:2]
+        out, keys, w_all, rows = _oct_split_forward(x, table, resolutions, table_size, dtype,
+                                                    keys=want_table, rows=want_x)
+        ctx.save_for_backward(x, keys, w_all, rows)
         ctx.resolutions, ctx.table_size = tuple(int(r) for r in resolutions), table_size
         ctx.table_shape = table.shape
-        return _blend_levels(_level_feats(rows, table.shape[-1]), w_all)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, w_all, *saved = ctx.saved_tensors
+        x, keys, w_all, rows = ctx.saved_tensors
         resolutions, table_size = ctx.resolutions, ctx.table_size
         n_levels, _, n_feats = ctx.table_shape
-        idx_levels, rows = saved[:n_levels], saved[n_levels:]
-        g_lf = _cotangent(g, n_levels, n_feats)
-        canon = _oct_split_table_grad(idx_levels, w_all, g_lf, resolutions, table_size)
-        dx = None
+        g_lf = _cotangent(g, n_levels, n_feats).reshape(-1, n_levels, n_feats)
+        canon = dx = None
+        if ctx.needs_input_grad[1]:
+            canon = _oct_split_table_grad(keys, w_all, g_lf, resolutions, table_size)
         if ctx.needs_input_grad[0]:
-            dx = _trilinear_dx(x, resolutions, _corner_sums(g_lf, _level_feats(rows, n_feats)))
-        return dx, canon, None, None
+            s = _corner_sums(g_lf, _level_feats(rows, n_feats))
+            dx = _trilinear_dx(x.reshape(-1, 3), resolutions, s).reshape(x.shape)
+        return dx, canon, None, None, None
 
 
 class OctEncode(torch.autograd.Function):
@@ -644,9 +723,9 @@ class CornerEncode(torch.autograd.Function):
         return dx, dtable.reshape(ctx.table_shape), None, None
 
 
-_ENCODE = {"osplit": encode_oct_split, "oct": encode_oct, "quad": encode_quad}
-_SORTED = {"osplit": OctSplitEncode, "oct": OctEncode, "quad": QuadEncode}
-_PREPARE = {"osplit": build_oct_tables_split, "oct": build_oct_table, "quad": build_quad_table}
+_ENCODE = {"oct": encode_oct, "quad": encode_quad}
+_SORTED = {"oct": OctEncode, "quad": QuadEncode}
+_PREPARE = {"oct": build_oct_table, "quad": build_quad_table}
 
 
 class HashGridEncoding(nn.Module):
@@ -694,8 +773,9 @@ class HashGridEncoding(nn.Module):
 
     def prepare(self):
         """The packed physical table(s), for repeated encodes of frozen
-        weights; None for the corner layout (nothing to pack)."""
-        if self.layout == "corner":
+        weights; None where nothing is packed: the corner layout, and osplit,
+        whose forward (K4 on the card) reads the canonical table."""
+        if self.layout in ("corner", "osplit"):
             return None
         with torch.no_grad():
             return _PREPARE[self.layout](self.table, self.resolutions, self.table_size)
@@ -707,6 +787,8 @@ class HashGridEncoding(nn.Module):
                 out = CornerEncode.apply(*args)
             else:
                 out = encode(*args, pack_rows=self.pack_rows)
+        elif self.layout == "osplit":
+            return encode_osplit(*args, self.compute_dtype, self.sorted_grad)
         elif prepared is not None:
             out = _ENCODE[self.layout](*args, prepared)
         elif self.sorted_grad:

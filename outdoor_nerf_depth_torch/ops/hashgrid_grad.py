@@ -1,7 +1,15 @@
-"""The osplit hash-table gradient over all levels: CUDA kernels K3a and K3b and plain twins.
+"""The osplit hash grid over all levels: CUDA kernels K4, K3a and K3b and plain twins.
 
-`OctSplitEncode.backward` (`ops/hashgrid.py`) sorts the level-offset row
-ids of every level at once, then runs
+K4 (`oct_split_encode_cuda`) is the osplit forward, `ops/hashgrid.py`'s
+`encode_oct_split` in one launch: every level of every point read from the
+canonical f32 table [L, T, F], each corner value rounded to bf16 as the
+packed tables held it, blended in f32 and written in the compute dtype.
+With the table gradient it also writes the level-offset int32 row keys
+[L, P] and the weights [P, L, 8] that the backward reads; with the points'
+gradient the bf16 corner values [P, L, 8F].
+
+`OctSplitEncode.backward` (`ops/hashgrid.py`) sorts those keys of every
+level at once, then runs
 
 - K3a (`sorted_products`): the products of the corner weights and the
   cotangent, rounded to bf16, in sorted order, as [L, P, 8F] float32;
@@ -9,16 +17,20 @@ ids of every level at once, then runs
 - K3b (`fold_segments`): each canonical row's gradient [L, T, F], the
   differences of the prefix sums at its eight physical rows' segment ends.
 
-Both kernels live in `csrc/hashgrid_grad.cu` (see the note there). Neither
+The kernels live in `csrc/hashgrid_grad.cu` (see the note there). None
 replaces a TPU kernel: they take the place of the per-level PyTorch ops the
 reference runs through XLA. The plain versions repeat their arithmetic:
-`sorted_products_plain` in PyTorch ops, `fold_segments_plain` as
-`ops/hashgrid.py`'s `_sums_at_ends` and `_fold` level by level, which the
-port's other sorted gradients use too.
+K4's is `ops/hashgrid.py:_oct_split_forward_plain` (`encode_oct_split`:
+packed bf16 tables, a gather a level, the blend), which dispatches between
+the two and hands K4 each level's layout by value; `sorted_products_plain`
+in PyTorch ops, `fold_segments_plain` as `ops/hashgrid.py`'s
+`_sums_at_ends` and `_fold` level by level, which the port's other sorted
+gradients use too.
 
 `sorted_products` and `fold_segments` use the plain version only for a
 tensor on the CPU; for a CUDA tensor they launch the kernel or raise.
-`PRODUCT_LAUNCHES` (K3a) and `FOLD_LAUNCHES` (K3b) count kernel launches.
+`ENCODE_LAUNCHES` (K4), `PRODUCT_LAUNCHES` (K3a) and `FOLD_LAUNCHES` (K3b)
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -35,13 +47,14 @@ CORNERS = 8
 MAX_LEVELS = 64  # kMaxLevels in the source: the LevelPlan kernel argument's size
 FEATURES = (1, 2, 4, 8, 16)  # 8F lanes must divide the scan's 128
 
+ENCODE_LAUNCHES = 0
 PRODUCT_LAUNCHES = 0
 FOLD_LAUNCHES = 0
 
 
 def reset_launch_counts():
-    global PRODUCT_LAUNCHES, FOLD_LAUNCHES
-    PRODUCT_LAUNCHES = FOLD_LAUNCHES = 0
+    global ENCODE_LAUNCHES, PRODUCT_LAUNCHES, FOLD_LAUNCHES
+    ENCODE_LAUNCHES = PRODUCT_LAUNCHES = FOLD_LAUNCHES = 0
 
 
 # ---- plain versions --------------------------------------------------------
@@ -84,6 +97,9 @@ def _lib():
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.osplit_encode.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr, i64, i64, i64, i32,
+                                      ptr, ptr, ptr, ptr]
+        lib.osplit_encode.restype = i32
         lib.osplit_grad_products_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
         lib.osplit_grad_products_f32.restype = i32
         lib.osplit_grad_fold_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, i32, ptr, ptr, ptr]
@@ -107,6 +123,54 @@ def _check_sizes(n_levels: int, n_feats: int):
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def oct_split_encode_cuda(x: torch.Tensor, table: torch.Tensor, resolutions, strides,
+                          pair_offsets, dtype: torch.dtype = torch.float32, keys: bool = False,
+                          rows: bool = False):
+    """K4 on CUDA tensors x [P, 3] and table [L, T, F] float32, contiguous,
+    the table 16-byte aligned. Per level, passed by value: its resolution,
+    its dense stride res + 1 (0 on a hashed level) and the row offsets of
+    corners 0, 2, 4 and 6 (corner 2k + 1 is the row after 2k's), L x 4 in
+    `pair_offsets`. Returns (features [P, L F] in `dtype`, keys [L, P]
+    int32 and w_all [P, L, 8] float32 if `keys`, rows [P, L, 8F] bfloat16
+    if `rows`; None for what is not asked for)."""
+    global ENCODE_LAUNCHES
+    n_levels, table_size, n_feats = table.shape
+    _check_sizes(n_levels, n_feats)
+    n_points = x.shape[0]
+    _check_cuda(x, torch.float32, (n_points, 3), "x")
+    _check_cuda(table, torch.float32, (n_levels, table_size, n_feats), "table")
+    if x.device != table.device or table.data_ptr() % 16:
+        raise ValueError(f"kernel takes x and a 16-byte aligned table on one device, got "
+                         f"{x.device} and {table.device} at {table.data_ptr():#x}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel writes float32 or bfloat16 features, not {dtype}")
+    if not len(resolutions) == len(strides) == n_levels or len(pair_offsets) != 4 * n_levels:
+        raise ValueError(f"{n_levels} levels, {len(resolutions)} resolutions, {len(strides)} "
+                         f"strides, {len(pair_offsets)} pair offsets")
+    if keys and n_levels * table_size > torch.iinfo(torch.int32).max:
+        raise ValueError(f"{n_levels} levels of {table_size} rows overflow the int32 sort keys")
+    plan_res = (ctypes.c_int * n_levels)(*(int(r) for r in resolutions))
+    plan_strides = (ctypes.c_int * n_levels)(*(int(s) for s in strides))
+    plan_pairs = (ctypes.c_int * len(pair_offsets))(*(int(o) for o in pair_offsets))
+    dev = table.device
+    out = torch.empty((n_points, n_levels * n_feats), dtype=dtype, device=dev)
+    level_keys = torch.empty((n_levels, n_points), dtype=torch.int32, device=dev) if keys else None
+    w_all = torch.empty((n_points, n_levels, CORNERS), device=dev) if keys else None
+    gathered = (torch.empty((n_points, n_levels, CORNERS * n_feats), dtype=torch.bfloat16,
+                            device=dev) if rows else None)
+    if n_points:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            code = _lib().osplit_encode(
+                x.data_ptr(), table.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
+                ptr(level_keys), ptr(w_all), ptr(gathered), n_levels, n_points, table_size,
+                n_feats, plan_res, plan_strides, plan_pairs, _stream(table))
+        if code != 0:
+            raise RuntimeError(f"osplit_encode launch failed: cudaError {code}")
+        ENCODE_LAUNCHES += 1
+    return out, level_keys, w_all, gathered
 
 
 def sorted_products_cuda(order: torch.Tensor, w_all: torch.Tensor,

@@ -66,6 +66,7 @@ def kernel_launches() -> dict:
     return {"K1a": volren_weights.FWD_LAUNCHES, "K1b": volren_weights.BWD_LAUNCHES,
             "K2a": prefix_scan.LAUNCHES, "K2b": prefix_scan.BATCHED_LAUNCHES,
             "K3a": hashgrid_grad.PRODUCT_LAUNCHES, "K3b": hashgrid_grad.FOLD_LAUNCHES,
+            "K4": hashgrid_grad.ENCODE_LAUNCHES,
             "P1": chunk_gather.TAKE_LAUNCHES, "P2": chunk_gather.ONEHOT_LAUNCHES}
 
 

@@ -106,13 +106,14 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
     # ---- The table gradient alone: one pass against the per-level pipeline.
     with torch.no_grad():
         idx_levels, w_all = hashgrid._oct_local_indices_weights(x, res, table_size)
+        level_keys = hashgrid._level_keys(idx_levels, table_size)
     g_lf = g.reshape(m, LEVELS, FEATURES)
 
     def per_level():
         return hashgrid._oct_split_table_grad_per_level(idx_levels, w_all, g_lf, res, table_size)
 
     def one_pass():
-        return hashgrid._oct_split_table_grad(idx_levels, w_all, g_lf, res, table_size)
+        return hashgrid._oct_split_table_grad(level_keys, w_all, g_lf, res, table_size)
 
     results["table_grad_one_pass_s"], launches["table_grad_one_pass"] = timed_launches(
         one_pass, dev, reps, _k2b)
@@ -125,12 +126,11 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
     # largest entry, as the card tests hold them).
     results["one_pass_matches"] = results["one_pass_max_abs_diff"] <= 1e-4 * max(
         results["table_grad_max_abs"], 1e-30)
-    keys = torch.stack([i.reshape(-1) for i in idx_levels]) + torch.arange(
+    keys64 = torch.stack([i.reshape(-1) for i in idx_levels]) + torch.arange(
         0, LEVELS * table_size, table_size, device=dev)[:, None]
-    results["sort_level_keys_int64_s"] = t(lambda: torch.sort(keys.reshape(-1)))
-    results["sort_level_keys_int32_s"] = t(
-        lambda: hashgrid._sorted_level_keys(idx_levels, table_size))
-    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, table_size)
+    results["sort_level_keys_int64_s"] = t(lambda: torch.sort(keys64.reshape(-1)))
+    results["sort_level_keys_int32_s"] = t(lambda: hashgrid._sorted_level_keys(level_keys))
+    sorted_keys, order = hashgrid._sorted_level_keys(level_keys)
     results["products_kernel_s"], launches["products_kernel"] = timed_launches(
         lambda: hashgrid_grad.sorted_products(order, w_all, g_lf), dev, reps, _k3a)
     results["products_plain_s"] = t(
@@ -144,7 +144,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
     results["fold_kernel_s"], launches["fold_kernel"] = timed_launches(
         lambda: hashgrid_grad.fold_segments(*fold_args), dev, reps, _k3b)
     results["fold_plain_s"] = t(lambda: hashgrid_grad.fold_segments_plain(*fold_args))
-    del got, want, csum, ends, keys
+    del got, want, csum, ends, keys64
 
     # ---- Per-level stages at the last level (hashed: rows == T).
     level = LEVELS - 1

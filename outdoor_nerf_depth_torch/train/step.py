@@ -580,8 +580,9 @@ def make_occupancy_update_fn(config: Config, model):
     Returns update(grid, generator, warmup) -> new grid. A warmup refresh
     sweeps every cell, a later one `occupancy_cells_per_update` sampled
     cells per cascade. In a process group every rank calls it, and every
-    rank gets rank 0's grid. The packed hash tables are built once per refresh,
-    not once per chunk of the sweep.
+    rank gets rank 0's grid. Packed hash tables are built once per refresh,
+    not once per chunk of the sweep (the osplit layout packs none: its
+    forward reads the canonical table).
     """
     if not isinstance(model, HashGridModel):
         return None

@@ -22,7 +22,9 @@ device holding a counted tensor.
 
 Names follow the layer: `loop.*` (train/loop.py), `step.*` (the train
 step's phases), `ngp.*`, `mip.*` and `nerfpp.*` (the models), `render.*`
-and `view.*` (the renderer and the viewer). The span names are part of what traces and
+and `view.*` (the renderer and the viewer), and the hash grid's counters
+`hashgrid.fwd_levels` and `hashgrid.grad_levels` (`ops/hashgrid.py`: the
+levels one osplit forward encodes, or one backward folds, in one pass). The span names are part of what traces and
 their readers rely on: rename one only with its readers.
 """
 

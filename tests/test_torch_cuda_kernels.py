@@ -200,7 +200,7 @@ def _osplit_inputs(device, points, res, log2_t, n_feats, seed=7):
 
 def _osplit_stages(idx_levels, w_all, g, res, table_size):
     """The sort order, products, prefix sums and ends of the one-pass backward."""
-    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, table_size)
+    sorted_keys, order = hashgrid._sorted_level_keys(hashgrid._level_keys(idx_levels, table_size))
     vals = hashgrid_grad.sorted_products(order, w_all, g)
     csum = prefix_scan.cumsum_batched(vals)
     return order, vals, csum, hashgrid._level_segment_ends(sorted_keys, len(res), table_size)
@@ -233,7 +233,8 @@ def test_osplit_backward_matches_the_per_level_pipeline(cuda_device, points, res
     other, at OSPLIT_RTOL_OF_MAX of the largest entry."""
     table_size = 2**log2_t
     idx_levels, w_all, g = _osplit_inputs(cuda_device, points, res, log2_t, n_feats, seed=8)
-    got = hashgrid._oct_split_table_grad(idx_levels, w_all, g, res, table_size)
+    got = hashgrid._oct_split_table_grad(hashgrid._level_keys(idx_levels, table_size), w_all, g,
+                                         res, table_size)
     old = hashgrid._oct_split_table_grad_per_level(idx_levels, w_all, g, res, table_size)
     prod = (w_all[..., None] * g[:, :, None, :]).to(torch.bfloat16).double()
     want = torch.zeros((len(res), table_size, n_feats), dtype=torch.float64, device=cuda_device)
@@ -289,6 +290,185 @@ def test_osplit_backward_makes_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert table.grad is not None and bool(torch.isfinite(table.grad).all())
+
+
+# K4, the osplit forward, where the NGP cells run it: a train step's 262,144
+# points with the table gradient, a view chunk of 16,384 rays x budget 32 =
+# 524,288 points and the view's last chunk (60,000 rays: 10,848 x 32 =
+# 347,136) without, a refresh chunk of 131,072 (`ops/occupancy.py:
+# update_grid`); then the points' gradient, bf16 features, features 1, 4,
+# 8 and 16 on small tables, and P not a multiple of 32.
+ENCODE_CASES = [  # (points, resolutions, log2 T, F, dtype, keys, rows)
+    (OSPLIT_POINTS, OSPLIT_RES, OSPLIT_LOG2_T, 2, torch.float32, True, False),
+    (524288, OSPLIT_RES, OSPLIT_LOG2_T, 2, torch.float32, False, False),
+    (347136, OSPLIT_RES, OSPLIT_LOG2_T, 2, torch.float32, False, False),
+    (131072, OSPLIT_RES, OSPLIT_LOG2_T, 2, torch.float32, False, False),
+    (4099, OSPLIT_RES, OSPLIT_LOG2_T, 2, torch.float32, True, True),
+    (4099, OSPLIT_RES, OSPLIT_LOG2_T, 2, torch.bfloat16, True, False),
+    (1001, (4, 9, 31), 10, 1, torch.float32, True, True),
+    (777, (4, 9, 31), 10, 4, torch.bfloat16, True, True),
+    (513, (4, 9, 31), 10, 8, torch.float32, True, True),
+    (300, (4, 9, 31), 10, 16, torch.bfloat16, True, True),
+    (5, (31,), 10, 2, torch.float32, True, True)]
+
+
+def _encode_inputs(device, points, res, log2_t, n_feats, seed=31):
+    """Points in the unit cube and a little outside it, and a table of normal values."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = 1.1 * torch.rand((points, 3), generator=gen, device=device) - 0.05
+    table = torch.randn((len(res), 2**log2_t, n_feats), generator=gen, device=device)
+    return x, 1e-2 * table
+
+
+def _assert_encodes_equal(got, want):
+    """K4's outputs against the plain version's: equal bit for bit (None
+    alike), NaN where the plain version's are (a NaN's bits may differ)."""
+    for name, a, b in zip(("features", "keys", "w_all", "rows"), got, want):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            if a.is_floating_point():
+                nan = b.isnan()
+                assert torch.equal(a.isnan(), nan), name
+                a, b = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
+            assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b), name
+
+
+@pytest.mark.parametrize("points,res,log2_t,n_feats,dtype,keys,rows", ENCODE_CASES)
+def test_osplit_encode_matches_plain_exactly(cuda_device, points, res, log2_t, n_feats, dtype,
+                                            keys, rows):
+    """K4 against its plain version (the packed bf16 tables of
+    `encode_oct_split`) on the card, bit for bit: the features, and the keys,
+    weights and corner rows where asked for; one launch."""
+    table_size = 2**log2_t
+    x, table = _encode_inputs(cuda_device, points, res, log2_t, n_feats)
+    hashgrid_grad.reset_launch_counts()
+    got = hashgrid._oct_split_forward(x, table, res, table_size, dtype, keys, rows)
+    assert hashgrid_grad.ENCODE_LAUNCHES == 1
+    want = hashgrid._oct_split_forward_plain(x, table, res, table_size, dtype, keys, rows)
+    _assert_encodes_equal(got, want)
+    encoded = hashgrid.encode_oct_split(x, table, res, table_size).to(dtype)
+    assert torch.equal(got[0], encoded)
+
+
+def test_osplit_encode_on_faces_bounds_and_the_hash_wrap(cuda_device):
+    """Points on cell faces (x res whole), at 0 and 1 and outside, a NaN
+    coordinate (its features NaN, as the plain version's clamp keeps it),
+    and hashed cells whose corner pairs start at row T - 1 (the pair wraps
+    to row 0), bit for bit against the plain version."""
+    res, log2_t = OSPLIT_RES, OSPLIT_LOG2_T
+    table_size = 2**log2_t
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    faces = [torch.randint(0, r + 1, (4096, 3), generator=gen, device=cuda_device) / r
+             for r in res]
+    bounds = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.5], [-0.5, 1.5, 1.0],
+                           [0.5, float("nan"), 0.25]], device=cuda_device)
+    # Hashed cells at the finest level whose base row is T - 1 - offset_c
+    # for some pair: search random cells for them.
+    r = res[-1]
+    cells = torch.randint(0, r, (1 << 22, 3), generator=gen, device=cuda_device)
+    base = hashgrid._quad_base_index(cells, r, table_size)
+    offsets = hashgrid._oct_offsets(r, table_size)
+    wraps = torch.zeros_like(base, dtype=torch.bool)
+    for o in offsets[::2]:
+        wraps |= (base + o) % table_size == table_size - 1
+    assert int(wraps.sum()) > 0
+    wrapped = (cells[wraps].to(torch.float32) + 0.5) / r
+    x = torch.cat(faces + [bounds, wrapped])
+    table = 1e-2 * torch.randn((len(res), table_size, 2), generator=gen, device=cuda_device)
+    got = hashgrid._oct_split_forward(x, table, res, table_size, torch.float32, True, True)
+    want = hashgrid._oct_split_forward_plain(x, table, res, table_size, torch.float32, True,
+                                             True)
+    _assert_encodes_equal(got, want)
+    nan_row = sum(len(f) for f in faces) + len(bounds) - 1
+    assert bool(got[0][nan_row].isnan().all()) and int(got[0].isnan().any(dim=1).sum()) == 1
+
+
+def test_osplit_encode_writes_what_the_backward_read(cuda_device):
+    """The keys and weights K4 writes at the train cell's shape are the
+    level-offset keys `_level_keys` builds and the weights of
+    `_oct_local_indices_weights`, bit for bit."""
+    table_size = 2**OSPLIT_LOG2_T
+    x, table = _encode_inputs(cuda_device, OSPLIT_POINTS, OSPLIT_RES, OSPLIT_LOG2_T, 2)
+    _, keys, w_all, _ = hashgrid._oct_split_forward(x, table, OSPLIT_RES, table_size,
+                                                    torch.float32, True)
+    idx_levels, want_w = hashgrid._oct_local_indices_weights(x, OSPLIT_RES, table_size)
+    assert torch.equal(keys, hashgrid._level_keys(idx_levels, table_size))
+    assert torch.equal(w_all, want_w)
+
+
+def test_osplit_table_gradient_is_the_plain_paths(cuda_device, monkeypatch):
+    """OctSplitEncode's table gradient at the train cell's shape, from K4's
+    keys and weights, equals bit for bit the one-pass gradient from the keys
+    and weights of the plain index math. The scan K2b sums its carries in a
+    timing-dependent order, so both take the plain scan here."""
+    monkeypatch.setattr(prefix_scan, "cumsum_batched", prefix_scan.cumsum_batched_plain)
+    table_size = 2**OSPLIT_LOG2_T
+    x, table = _encode_inputs(cuda_device, OSPLIT_POINTS, OSPLIT_RES, OSPLIT_LOG2_T, 2)
+    gen = torch.Generator(device=cuda_device).manual_seed(33)
+    g = torch.randn((OSPLIT_POINTS, 2 * OSPLIT_LEVELS), generator=gen, device=cuda_device)
+    table.requires_grad_(True)
+    hashgrid_grad.reset_launch_counts()
+    (hashgrid.OctSplitEncode.apply(x, table, OSPLIT_RES, table_size) * g).sum().backward()
+    assert (hashgrid_grad.ENCODE_LAUNCHES, hashgrid_grad.PRODUCT_LAUNCHES,
+            hashgrid_grad.FOLD_LAUNCHES) == (1, 1, 1)
+    idx_levels, w_all = hashgrid._oct_local_indices_weights(x, OSPLIT_RES, table_size)
+    want = hashgrid._oct_split_table_grad(hashgrid._level_keys(idx_levels, table_size), w_all,
+                                          g.reshape(OSPLIT_POINTS, OSPLIT_LEVELS, 2), OSPLIT_RES,
+                                          table_size)
+    assert torch.equal(table.grad, want)
+
+
+def test_osplit_module_forward_launches_k4_and_makes_no_host_sync(cuda_device):
+    """The module's osplit forward on the card: one K4 launch, with and
+    without a gradient, no packed table (`prepare` gives None), and no wait
+    for the card (torch's sync debug mode raises on one)."""
+    gen = torch.Generator().manual_seed(34)
+    enc = hashgrid.HashGridEncoding(n_levels=OSPLIT_LEVELS, n_features=2,
+                                    log2_table_size=OSPLIT_LOG2_T, base_resolution=16,
+                                    max_resolution=32768, generator=gen).to(cuda_device)
+    assert enc.resolutions == OSPLIT_RES and enc.prepare() is None
+    x = torch.rand((OSPLIT_POINTS, 3), device=cuda_device)
+    enc(x).sum().backward()  # builds the kernels and warms the allocator
+    with torch.no_grad():
+        enc(x)
+    torch.cuda.synchronize()
+    hashgrid_grad.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = enc(x)
+        with torch.no_grad():
+            plain = enc(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert hashgrid_grad.ENCODE_LAUNCHES == 2 and plain.grad_fn is None
+    assert torch.equal(out.detach(), plain)
+    assert torch.equal(plain, hashgrid.encode_oct_split(x, enc.table.detach(), enc.resolutions,
+                                                        enc.table_size))
+
+
+def test_osplit_encode_refuses_what_it_does_not_take(cuda_device):
+    """F outside FEATURES and more than MAX_LEVELS levels raise; so does the
+    scatter table gradient, which K4 keeps nothing for (its features
+    without a gradient are K4's)."""
+    x = torch.rand((64, 3), device=cuda_device)
+    for shape in [(4, 2**10, 3), (hashgrid_grad.MAX_LEVELS + 1, 2**10, 2)]:
+        table = torch.zeros(shape, device=cuda_device)
+        res = (4,) * shape[0]
+        with pytest.raises(ValueError):
+            hashgrid._oct_split_forward(x, table, res, 2**10)
+    enc = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,
+                                    base_resolution=4, max_resolution=64,
+                                    grad_mode="scatter").to(cuda_device)
+    with pytest.raises(ValueError, match="scatter"):
+        enc(x)
+    hashgrid_grad.reset_launch_counts()
+    with torch.no_grad():
+        out = enc(x)
+    assert hashgrid_grad.ENCODE_LAUNCHES == 1
+    assert torch.equal(out, hashgrid.encode_oct_split(x, enc.table.detach(), enc.resolutions,
+                                                      enc.table_size))
 
 
 # The probe's shape; many tiles per element; many elements of one tile or

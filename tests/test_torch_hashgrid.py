@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from outdoor_nerf_depth_torch.ops import hashgrid as t_hg
+from outdoor_nerf_depth_torch.ops import hashgrid_grad
+from outdoor_nerf_depth_torch.utils import tracing
 from outdoor_nerf_depth_tpu.ops import hashgrid as j_hg
 
 torch.set_num_threads(1)
@@ -171,3 +173,110 @@ def test_encoding_module_options():
         t_hg.HashGridEncoding(pack_rows=64)
     with pytest.raises(ValueError):
         t_hg.HashGridEncoding(grad_mode="nope")
+
+
+# The NGP cells' grid (L16, F2, base 16, finest 32768, T 2^19) scaled down:
+# 16 levels from 4 to 512 over T = 2^12, so levels up to res 15 are dense
+# and the rest hashed.
+NGP_L, NGP_LOG2_T = 16, 12
+NGP_RES = tuple(int(r) for r in t_hg.level_resolutions(NGP_L, 4, 512))
+
+
+def _ngp_inputs(n=300, seed=4):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
+    table = rng.normal(0.0, 0.1, (NGP_L, 2**NGP_LOG2_T, F)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(table)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatcher_plain_twin_equals_encode_oct_split(dtype):
+    """K4's dispatcher on the CPU (its plain twin) gives encode_oct_split's
+    features bit for bit, in the compute dtype, with the keys, weights and
+    rows the backward reads, at dense and hashed levels."""
+    x, table = _ngp_inputs()
+    T_ngp = 2**NGP_LOG2_T
+    dense = [t_hg._is_dense(r, T_ngp) for r in NGP_RES]
+    assert any(dense) and not all(dense)
+    out, keys, w_all, rows = t_hg._oct_split_forward(x, table, NGP_RES, T_ngp, dtype,
+                                                     keys=True, rows=True)
+    want = t_hg.encode_oct_split(x, table, NGP_RES, T_ngp).to(dtype)
+    assert out.dtype == dtype and torch.equal(out, want)
+    idx_levels, want_w = t_hg._oct_local_indices_weights(x, NGP_RES, T_ngp)
+    assert keys.dtype == torch.int32 and torch.equal(keys, t_hg._level_keys(idx_levels, T_ngp))
+    assert torch.equal(w_all, want_w)
+    phys = t_hg.build_oct_tables_split(table, NGP_RES, T_ngp)
+    assert rows.dtype == torch.bfloat16 and rows.shape == (len(x), NGP_L, 8 * F)
+    for level, idx in enumerate(idx_levels):
+        assert torch.equal(rows[:, level], phys[level][idx])
+    assert t_hg._oct_split_forward(x, table, NGP_RES, T_ngp)[1:] == (None, None, None)
+
+
+def test_saved_keys_and_weights_give_the_one_pass_gradient():
+    """OctSplitEncode's table gradient, from the keys and weights its forward
+    keeps, equals the one pass run on the plain index math's, bit for bit;
+    its point gradient equals the analytic one from the kept rows."""
+    x, table = _ngp_inputs(seed=5)
+    T_ngp = 2**NGP_LOG2_T
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=(len(x), NGP_L * F))
+                         .astype(np.float32))
+    xt, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    (t_hg.OctSplitEncode.apply(xt, tt, NGP_RES, T_ngp) * g).sum().backward()
+    idx_levels, w_all = t_hg._oct_local_indices_weights(x, NGP_RES, T_ngp)
+    g_lf = g.reshape(len(x), NGP_L, F)
+    want = t_hg._oct_split_table_grad(t_hg._level_keys(idx_levels, T_ngp), w_all, g_lf, NGP_RES,
+                                      T_ngp)
+    assert torch.equal(tt.grad, want)
+    rows = t_hg._oct_split_gather(x, table, NGP_RES, T_ngp)[2]
+    want_dx = t_hg._trilinear_dx(x, NGP_RES, t_hg._corner_sums(g_lf, t_hg._level_feats(rows, F)))
+    assert torch.equal(xt.grad, want_dx)
+
+
+def test_forward_keeps_only_what_the_backward_reads(monkeypatch):
+    """The module's osplit forward asks the dispatcher for the keys and
+    weights only where the table takes a gradient, for the rows only where
+    the points do, and for neither under no_grad, where no graph is kept."""
+    asked = []
+    dispatch = t_hg._oct_split_forward
+
+    def recording(*args, keys=False, rows=False):
+        asked.append((keys, rows))
+        return dispatch(*args, keys=keys, rows=rows)
+
+    monkeypatch.setattr(t_hg, "_oct_split_forward", recording)
+    enc = t_hg.HashGridEncoding(n_levels=L, n_features=F, log2_table_size=LOG2_T,
+                                base_resolution=4, max_resolution=64)
+    x, _ = _ngp_inputs(n=64)
+    with torch.no_grad():
+        assert enc(x).grad_fn is None
+    assert enc(x).grad_fn is not None
+    assert enc(x.clone().requires_grad_(True)).grad_fn is not None
+    enc.table.requires_grad_(False)
+    assert enc(x).grad_fn is None
+    assert asked == [(False, False), (True, False), (True, True), (False, False)]
+
+
+def test_forward_counts_its_levels_under_the_profiler():
+    """`hashgrid.fwd_levels`: the levels one osplit forward encodes in one
+    pass, 16 a forward at the NGP cells' 16 levels, with and without a
+    gradient."""
+    enc = t_hg.HashGridEncoding(n_levels=NGP_L, n_features=F, log2_table_size=NGP_LOG2_T,
+                                base_resolution=4, max_resolution=512)
+    x, _ = _ngp_inputs(n=64)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        enc(x).sum().backward()
+        with torch.no_grad():
+            enc(x)
+        counters = tracing.snapshot()["counters"]
+    assert counters["hashgrid.fwd_levels"] == 2 * NGP_L
+
+
+def test_cuda_dispatcher_refuses_unsupported_shapes():
+    """K4 takes F in FEATURES and at most MAX_LEVELS levels; the CUDA
+    entry raises on any other before it touches a card."""
+    x = torch.rand((8, 3))
+    for shape in [(2, 2**10, 3), (hashgrid_grad.MAX_LEVELS + 1, 2**10, 2)]:
+        n_levels = shape[0]
+        with pytest.raises(ValueError, match="features|levels"):
+            hashgrid_grad.oct_split_encode_cuda(x, torch.zeros(shape), (4,) * n_levels,
+                                                (5,) * n_levels, (0, 5, 25, 30) * n_levels)

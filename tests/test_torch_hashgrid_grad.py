@@ -78,7 +78,8 @@ def test_one_pass_matches_the_per_level_pipeline(case):
         assert all(len(set(i.tolist())) == 1 for i in idx_levels)
     hashgrid_grad.reset_launch_counts()
     prefix_scan.reset_launch_counts()
-    got = hashgrid._oct_split_table_grad(idx_levels, w_all, g_lf, res, T)
+    got = hashgrid._oct_split_table_grad(hashgrid._level_keys(idx_levels, T), w_all, g_lf,
+                                         res, T)
     want = hashgrid._oct_split_table_grad_per_level(idx_levels, w_all, g_lf, res, T)
     assert got.shape == (len(res), T, F) and got.dtype == torch.float32
     scale = float(want.abs().max())
@@ -121,7 +122,7 @@ def test_products_in_sorted_order():
     of the point the sort put there, lanes in (corner, feature) order."""
     res, x, idx_levels, w_all, g_lf = _inputs("outside_the_cube")
     n_points, n_levels = len(x), len(res)
-    _, order = hashgrid._sorted_level_keys(idx_levels, T)
+    _, order = hashgrid._sorted_level_keys(hashgrid._level_keys(idx_levels, T))
     got = hashgrid_grad.sorted_products(order, w_all, g_lf)
     assert got.shape == (n_levels, n_points, 8 * F)
     for level in range(n_levels):
@@ -149,7 +150,7 @@ def test_level_keys_and_segment_ends():
     would overflow int32 are refused."""
     res, x, idx_levels, *_ = _inputs("outside_the_cube")
     n_points, n_levels = len(x), len(res)
-    sorted_keys, order = hashgrid._sorted_level_keys(idx_levels, T)
+    sorted_keys, order = hashgrid._sorted_level_keys(hashgrid._level_keys(idx_levels, T))
     assert sorted_keys.dtype == torch.int32 and order.shape == (n_levels * n_points,)
     blocks = sorted_keys.reshape(n_levels, n_points).long()
     for level, i in enumerate(idx_levels):
@@ -161,4 +162,4 @@ def test_level_keys_and_segment_ends():
         want = level * n_points + torch.cumsum(counts, 0)
         assert torch.equal(ends[level * T:(level + 1) * T].long(), want)
     with pytest.raises(ValueError, match="int32"):
-        hashgrid._sorted_level_keys(idx_levels, 2**30)
+        hashgrid._level_keys(idx_levels, 2**30)

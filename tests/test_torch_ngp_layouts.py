@@ -244,7 +244,7 @@ def test_encoding_module_dispatch(inputs, layout):
     assert out.grad_fn.name().startswith(T_SORTED[layout].__name__)
     np.testing.assert_array_equal(out.detach().numpy(), want.numpy())
     prepared = enc.prepare()
-    assert (prepared is None) == (layout == "corner")
+    assert (prepared is None) == (layout in ("corner", "osplit"))
     with torch.no_grad():
         np.testing.assert_array_equal(enc(xt, prepared=prepared).numpy(), want.numpy())
     scatter = t_hg.HashGridEncoding(**kw, grad_mode="scatter")

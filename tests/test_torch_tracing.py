@@ -254,6 +254,30 @@ def test_ngp_samples_counter_equals_the_steps_own_stats(tmp_path):
     assert len(_named(spans, "step.forward")) == len(_named(spans, "step.optimizer")) == 3
 
 
+def test_hash_grid_counts_the_levels_of_each_forward(tmp_path):
+    """`hashgrid.fwd_levels` adds the grid's levels for every osplit forward
+    of the NGP train path: one a step, one a chunk of an occupancy refresh."""
+    config = _config("ngp", tmp_path)
+    model = t_step.build_model(config, generator=torch.Generator().manual_seed(0))
+    model.occupancy.fill_(1.0)
+    optimizer, lr_fn = t_step.make_optimizer(config, model)
+    dataset = t_loop.build_dataset(config, "train")
+    train_step = t_step.make_train_step(config, model, optimizer, lr_fn,
+                                        cameras=dataset.cameras_on("cpu"),
+                                        camtype=dataset.camtype)
+    update = t_step.make_occupancy_update_fn(config, model)
+    gen = torch.Generator().manual_seed(2)
+
+    def work():
+        update(model.occupancy, gen, True)
+        return [train_step(dataset.sample_batch(), i, i / 10, gen) for i in range(2)]
+
+    _profiled(work)
+    levels = NGP_PARAMS["field_params"]["n_levels"]
+    refresh_chunks = -(-model.occupancy.numel() // 131_072)  # ops/occupancy.py:update_grid
+    assert tracing.snapshot()["counters"]["hashgrid.fwd_levels"] == (2 + refresh_chunks) * levels
+
+
 def _nerfpp_rays(n: int):
     """n rays from inside the unit sphere, seeded."""
     g = torch.Generator().manual_seed(5)
