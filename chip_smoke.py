@@ -254,9 +254,10 @@ non-zero without the final line:
 
 K4, K3a and K3b are held against their plain versions (bit for bit) at every
 launch key of every phase, phase ddp's ranks included: the keys are recorded
-for the whole run, and those phase kernels did not check are checked after
-the paths that hold their shapes (`_hold_path_shapes`) and before the
-summary. Then the kernel summary, and last `{"ok": true, "device": {...}}`.
+(`cuda_build.recording`) for the whole run, and those phase kernels did not
+check are checked after the paths that hold their shapes
+(`_hold_path_shapes`) and before the summary. Then the kernel summary, and
+last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -299,7 +300,8 @@ from outdoor_nerf_depth_torch.probes import gather_attack, ngp_layout, osplit_bw
 from outdoor_nerf_depth_torch.probes import (nerfpp_ablate, nerfpp_mfu, ngp_bwd,  # noqa: E402
                                              ngp_eval, ngp_step, profile_step, workloads)
 from outdoor_nerf_depth_torch.probes import card as probe_card  # noqa: E402
-from outdoor_nerf_depth_torch.probes import kernel_launches as _launches  # noqa: E402
+from outdoor_nerf_depth_torch.ops.cuda_build import launches as _launches  # noqa: E402
+from outdoor_nerf_depth_torch.ops.cuda_build import reset_launches as _reset_launches  # noqa: E402
 from outdoor_nerf_depth_torch.data import cameras as cameras_lib  # noqa: E402
 from outdoor_nerf_depth_torch.tools import e2e_prior_loop, make_kitti_fixture  # noqa: E402
 from outdoor_nerf_depth_torch.tools import make_blender_fixture  # noqa: E402
@@ -555,18 +557,18 @@ PROBE_MFU_SWEEP = ((1024, 8), (1024, 32), (4096, 8))
 # of K3a and K3b at every launch key of any phase, by kernel and shape; the
 # kernels line takes them into its max_abs_err.
 PATH_SHAPE_ERRORS = {"K1": {}, "K2a": {}, "K2b": {}, "K3a": {}, "K3b": {}, "K4": {}}
-# Every K3a launch key (points, levels, features), K3b launch key
-# (`_grad_plan`) and K4 launch key (ENCODE_CASES' form) of this process and
-# of phase ddp's ranks (`_record_grad_launches`), and those held against the
-# plain version.
-GRAD_LAUNCHED = {"K3a": set(), "K3b": set(), "K4": set()}
+# Every launch key of this process (a recording open over `main`) and of
+# phase ddp's ranks, by kernel id: K3a's (points, levels, features), K3b's
+# (`_grad_plan`) and K4's (ENCODE_CASES' form) among them; and the K3a, K3b
+# and K4 keys held against the plain version.
+GRAD_LAUNCHED = {}
 GRAD_CHECKED = {"K3a": set(), "K3b": set(), "K4": set()}
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "outdoor_nerf_depth_torch/csrc/volren_weights.cu"
 SCAN_SOURCE = "outdoor_nerf_depth_torch/csrc/prefix_scan.cu"
 GATHER_SOURCE = "outdoor_nerf_depth_torch/csrc/chunk_gather.cu"
 GRAD_SOURCE = "outdoor_nerf_depth_torch/csrc/hashgrid_grad.cu"
-KERNEL_IDS = ("K1a", "K1b", "K2a", "K2b", "K3a", "K3b", "K4", "P1", "P2")
+KERNEL_IDS = tuple(_launches())
 
 
 def emit(obj):
@@ -771,11 +773,11 @@ def _check_scan_bf16(x32):
     plain version's, relative to the running |x| sum."""
     x = x32.to(torch.bfloat16)
     batched = x.dim() == 3
-    before = (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES)
+    before = _launches()
     got = prefix_scan.cumsum_batched(x) if batched else prefix_scan.cumsum(x)
     plain = (prefix_scan.cumsum_batched_plain if batched else prefix_scan.cumsum_plain)(x)
     torch.cuda.synchronize()
-    launched = (prefix_scan.LAUNCHES - before[0], prefix_scan.BATCHED_LAUNCHES - before[1])
+    launched = tuple(_launches()[kid] - before[kid] for kid in ("K2a", "K2b"))
     if got.dtype != torch.bfloat16 or got.shape != x.shape or launched != ((0, 1) if batched
                                                                            else (1, 0)):
         raise AssertionError(f"bf16 scan at {tuple(x.shape)}: {got.dtype}, launches {launched}")
@@ -990,48 +992,6 @@ def _encode_kernels(gen):
     return {"K4": errors}, timing
 
 
-def _record_grad_launches():
-    """From now on, record the launch key of every K4, K3a and K3b launch of
-    this process into GRAD_LAUNCHED (the wrappers are called as usual)."""
-    products, fold = hashgrid_grad.sorted_products_cuda, hashgrid_grad.fold_segments_cuda
-    encode = hashgrid_grad.oct_split_encode_cuda
-
-    def recording_encode(x, table, resolutions, strides, pair_offsets, dtype=torch.float32,
-                         keys=False, rows=False):
-        GRAD_LAUNCHED["K4"].add((x.shape[0], tuple(int(r) for r in resolutions),
-                                 table.shape[1].bit_length() - 1, table.shape[-1],
-                                 str(dtype).split(".")[-1], bool(keys), bool(rows)))
-        return encode(x, table, resolutions, strides, pair_offsets, dtype, keys, rows)
-
-    def recording_products(order, w_all, g_lf):
-        GRAD_LAUNCHED["K3a"].add(tuple(g_lf.shape))
-        return products(order, w_all, g_lf)
-
-    def recording_fold(csum, ends, offsets, level_rows, table_size):
-        GRAD_LAUNCHED["K3b"].add((csum.shape[1], table_size, csum.shape[2] // hashgrid_grad.CORNERS,
-                                  tuple(tuple(int(o) for o in lv) for lv in offsets),
-                                  tuple(int(r) for r in level_rows)))
-        return fold(csum, ends, offsets, level_rows, table_size)
-
-    hashgrid_grad.sorted_products_cuda = recording_products
-    hashgrid_grad.fold_segments_cuda = recording_fold
-    hashgrid_grad.oct_split_encode_cuda = recording_encode
-
-
-def _grad_launched_lists():
-    """GRAD_LAUNCHED as JSON lists (a ddp rank hands its keys back)."""
-    return {kid: [list(key) for key in sorted(keys)] for kid, keys in GRAD_LAUNCHED.items()}
-
-
-def _add_grad_launched(lists):
-    """Add a rank's `_grad_launched_lists()` to GRAD_LAUNCHED."""
-    GRAD_LAUNCHED["K3a"].update(tuple(key) for key in lists["K3a"])
-    GRAD_LAUNCHED["K3b"].update(
-        (p, t, f, tuple(tuple(lv) for lv in offsets), tuple(rows))
-        for p, t, f, offsets, rows in lists["K3b"])
-    GRAD_LAUNCHED["K4"].update((p, tuple(res), *rest) for p, res, *rest in lists["K4"])
-
-
 def _hold_grad_launches():
     """K3a and K3b held against their plain versions at every K3b launch key
     recorded so far that no check has covered, K3a at its shape, and K4 at
@@ -1040,11 +1000,11 @@ def _hold_grad_launches():
     the errors, also kept in PATH_SHAPE_ERRORS."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = {"K3a": {}, "K3b": {}, "K4": {}}
-    for plan in sorted(GRAD_LAUNCHED["K3b"] - GRAD_CHECKED["K3b"]):
+    for plan in sorted(GRAD_LAUNCHED.get("K3b", set()) - GRAD_CHECKED["K3b"]):
         got = _check_grad(gen, plan)
         errors["K3a"][_products_key(plan[0], len(plan[4]), plan[2])] = got["K3a"]
         errors["K3b"][_grad_key(plan)] = got["K3b"]
-    for key in sorted(GRAD_LAUNCHED["K4"] - GRAD_CHECKED["K4"]):
+    for key in sorted(GRAD_LAUNCHED.get("K4", set()) - GRAD_CHECKED["K4"]):
         errors["K4"][_encode_key_name(key)] = _check_encode(gen, key)
     for kid in errors:
         PATH_SHAPE_ERRORS[kid].update(errors[kid])
@@ -1243,13 +1203,6 @@ def _scene(config, split, seed):
 def _only(**counts):
     """Launch counts of every kernel: those given, 0 for the others."""
     return {k: counts.get(k, 0) for k in KERNEL_IDS}
-
-
-def _reset_launches():
-    volren_weights.reset_launch_counts()
-    prefix_scan.reset_launch_counts()
-    hashgrid_grad.reset_launch_counts()
-    chunk_gather.reset_launch_counts()
 
 
 def _check_history(history, steps):
@@ -1460,57 +1413,21 @@ def _ngp_config(exp_dir):
 
 @contextlib.contextmanager
 def _record_scan_shapes(shapes):
-    """Record the shape of every K2a ([N, lanes]) and K2b ([B, N, lanes])
-    launch (the wrappers are called as usual)."""
-    launches = {name: getattr(prefix_scan, name)
-                for name in ("cumsum_cuda", "cumsum_batched_cuda")}
-
-    def recording(name):
-        def launch(x):
-            shapes.add(tuple(x.shape))
-            return launches[name](x)
-        return launch
-
-    for name in launches:
-        setattr(prefix_scan, name, recording(name))
-    try:
+    """Add to the set `shapes` the shape of every K2a ([N, lanes]) and K2b
+    ([B, N, lanes]) launch inside."""
+    with cuda_build.recording() as keys:
         yield
-    finally:
-        for name, launch in launches.items():
-            setattr(prefix_scan, name, launch)
-
-
-@contextlib.contextmanager
-def _record_path_shapes(shapes):
-    """Record the shape of every K1a, K1b, K2a and K2b launch into `shapes`,
-    a dict of sets by kernel id (the wrappers are called as usual)."""
-    wrappers = {"K1a": (volren_weights, "weights_fwd_cuda"),
-                "K1b": (volren_weights, "weights_bwd_cuda"), "K2a": (prefix_scan, "cumsum_cuda"),
-                "K2b": (prefix_scan, "cumsum_batched_cuda")}
-    originals = {kid: getattr(module, name) for kid, (module, name) in wrappers.items()}
-
-    def recording(kid):
-        def launch(x, *rest):
-            shapes.setdefault(kid, set()).add(tuple(x.shape))
-            return originals[kid](x, *rest)
-        return launch
-
-    for kid, (module, name) in wrappers.items():
-        setattr(module, name, recording(kid))
-    try:
-        yield
-    finally:
-        for kid, (module, name) in wrappers.items():
-            setattr(module, name, originals[kid])
+    shapes.update(keys.get("K2a", set()) | keys.get("K2b", set()))
 
 
 def _hold_path_shapes(shapes):
-    """Each K1, K2a and K2b shape in `shapes` (from `_record_path_shapes`)
-    that phase kernels did not check, held against the plain version on seeded
-    inputs (K1: tau in [0, 2), as phase kernels draws it), and every K3a and
-    K3b launch key not yet checked (`_hold_grad_launches`). Call it after
-    the path's launches are read: its own launches are not the path's.
-    Returns the shapes and the errors, also kept in PATH_SHAPE_ERRORS."""
+    """Each K1, K2a and K2b shape in `shapes` (keys of a
+    `cuda_build.recording`) that phase kernels did not check, held against
+    the plain version on seeded inputs (K1: tau in [0, 2), as phase kernels
+    draws it), and every K3a and K3b launch key not yet checked
+    (`_hold_grad_launches`). Call it after the path's launches are read:
+    its own launches are not the path's. Returns the keys and the errors,
+    also kept in PATH_SHAPE_ERRORS."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = {"K1": {}, "K2a": {}, "K2b": {}}
     for shape in sorted(shapes.get("K1a", set()) | shapes.get("K1b", set())):
@@ -1529,8 +1446,7 @@ def _hold_path_shapes(shapes):
     for kid in errors:
         PATH_SHAPE_ERRORS[kid].update(errors[kid])
     errors.update(_hold_grad_launches())
-    return {"launched_at": {kid: [list(s) for s in sorted(v)] for kid, v in shapes.items()},
-            "checked_here": errors}
+    return {"launched_at": cuda_build.keys_json(shapes), "checked_here": errors}
 
 
 def _ngp_launches(steps, refresh_chunks=0):
@@ -2924,7 +2840,7 @@ def phase_viewer(root):
             _reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with _record_path_shapes(shapes):
+            with cuda_build.recording(shapes):
                 panel, got = viewer.render_view(config, dataset, model, cam, height, width,
                                                 "cuda")
             ms = 1e3 * (time.perf_counter() - t0)
@@ -3192,7 +3108,7 @@ def phase_public_bench(root):
     _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _record_path_shapes(shapes):
+    with cuda_build.recording(shapes):
         summary, printed = _quiet(run_public_benchmark.main, argv)
     seconds = time.perf_counter() - t0
     counted = _launches()
@@ -3251,7 +3167,7 @@ def phase_bench_probes():
 
     shapes = {}
     t0 = time.perf_counter()
-    with _record_path_shapes(shapes):
+    with cuda_build.recording(shapes):
         result = ngp_step.run("cuda")
     steps = result["steps"]
     launches["bench_probes_ngp_step"] = _probe_record(
@@ -3263,7 +3179,7 @@ def phase_bench_probes():
 
     shapes = {}
     t0 = time.perf_counter()
-    with _record_path_shapes(shapes):
+    with cuda_build.recording(shapes):
         result = ngp_bwd.run("cuda", reps=PROBE_REPS)
     calls = PROBE_REPS + 1
     groups = result["launches"]
@@ -3282,7 +3198,7 @@ def phase_bench_probes():
 
     shapes = {}
     t0 = time.perf_counter()
-    with _record_path_shapes(shapes):
+    with cuda_build.recording(shapes):
         result = ngp_eval.run("cuda", chunks=PROBE_EVAL_CHUNKS, reps=PROBE_REPS)
     counted = _only()
     for chunk in PROBE_EVAL_CHUNKS:
@@ -4150,7 +4066,7 @@ def phase_ddp(smi):
         ranks = _ddp_spawn("gloo", 2, workdir)
         gloo_seconds = time.perf_counter() - t0
         for rank in [nccl] + ranks:
-            _add_grad_launched(rank["grad_launched"])
+            cuda_build.merge_keys(GRAD_LAUNCHED, rank["grad_launched"])
 
         gloo, checks = {}, {}
         for label, per_step in (("mip", _only(K1a=3, K1b=3)),
@@ -4222,10 +4138,10 @@ def _timed_summary(timed):
 
 def ddp_worker(part, workdir):
     """A rank of phase ddp (launched by `_ddp_spawn` through torchrun), with
-    the K4, K3a and K3b launch keys it ran at, for the parent to check."""
-    _record_grad_launches()
-    out = {"nccl": _ddp_worker_nccl, "gloo": _ddp_worker_gloo}[part](workdir)
-    out["grad_launched"] = _grad_launched_lists()
+    the launch keys it ran at, for the parent to check."""
+    with cuda_build.recording() as launched:
+        out = {"nccl": _ddp_worker_nccl, "gloo": _ddp_worker_gloo}[part](workdir)
+    out["grad_launched"] = cuda_build.keys_json(launched)
     with open(os.path.join(workdir, f"{part}_rank{os.environ['RANK']}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4338,7 +4254,7 @@ def summary(k, launches):
          "bound_by": "bytes", "probe_call": dict(bt[batched], shape=list(SCAN_BATCHED_PATH))})
     grad_work = (f"one osplit NGP train step: {GRAD_PATH[0]} points, {len(GRAD_PATH[1])} levels, "
                  f"T 2^{GRAD_PATH[2]}, F {GRAD_PATH[3]}")
-    unchecked = {kid: GRAD_LAUNCHED[kid] - GRAD_CHECKED[kid] for kid in GRAD_LAUNCHED}
+    unchecked = {kid: GRAD_LAUNCHED.get(kid, set()) - keys for kid, keys in GRAD_CHECKED.items()}
     if any(unchecked.values()):
         raise AssertionError(f"K3 or K4 launched at keys no check covered: {unchecked}")
     for kid, name in (("K3a", "K3a osplit_grad_products"), ("K3b", "K3b osplit_grad_fold")):
@@ -4381,51 +4297,51 @@ def main():
     if sys.argv[1:2] == ["--ddp-worker"]:
         ddp_worker(*sys.argv[2:4])
         return
-    _record_grad_launches()
-    smi = phase_device()
-    phase_build()
-    k = phase_kernels()
-    launches = {}
-    with tempfile.TemporaryDirectory() as exp_dir:
-        config, model, launches["train"], train_ms_f32 = phase_train(exp_dir)
-    launches["render"] = phase_render(config, model)
-    phase_profile(config, model, 3 * mlp_forward_flops(model, config.batch_size) / 1e12)
-    del model
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as exp_dir:
-        ngp_config, ngp_model, launches["ngp_train"], ngp_tflop = phase_ngp_train(exp_dir)
-    launches["ngp_render"] = phase_ngp_render(ngp_config, ngp_model)
-    phase_profile(ngp_config, ngp_model, ngp_tflop, label="ngp_profile")
-    update = step_lib.make_occupancy_update_fn(ngp_config, ngp_model)
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    _profile("ngp_refresh_profile", lambda i: update(ngp_model.occupancy, gen, i == 0), 2)
-    del ngp_model, update
-    torch.cuda.empty_cache()
-    launches["probe_osplit_bwd"] = phase_probe_osplit_bwd()
-    launches["probe_gather"] = phase_probe_gather()
-    with tempfile.TemporaryDirectory() as root:
-        kitti_launches, kitti_ngp_config, kitti_ngp, kitti_mip_eval = phase_kitti(root)
-        launches.update(kitti_launches)
-        launches.update(phase_nerfpp(root))
-        launches.update(phase_bf16_nerfpp(root))
-        launches.update(phase_ngp_eval(kitti_ngp_config, kitti_ngp))
-        del kitti_ngp
-        launches.update(phase_bf16_synthetic(train_ms_f32))
-        launches.update(phase_priors(root))
-        launches.update(phase_priors_photo(root))
-        launches.update(phase_eval_render(root, kitti_mip_eval))
-        launches.update(phase_cameras(root))
-        launches.update(phase_depth_losses(root))
-        launches.update(phase_ngp_layouts(root))
-        launches.update(phase_mip_options(root))
-        launches.update(phase_viewer(root))
-    launches.update(phase_lpips())
-    launches.update(phase_gate())
-    with tempfile.TemporaryDirectory() as root:
-        launches.update(phase_blender(root))
-        launches.update(phase_public_bench(root))
-    launches.update(phase_bench_probes())
-    launches.update(phase_ddp(smi))
+    with cuda_build.recording(GRAD_LAUNCHED):
+        smi = phase_device()
+        phase_build()
+        k = phase_kernels()
+        launches = {}
+        with tempfile.TemporaryDirectory() as exp_dir:
+            config, model, launches["train"], train_ms_f32 = phase_train(exp_dir)
+        launches["render"] = phase_render(config, model)
+        phase_profile(config, model, 3 * mlp_forward_flops(model, config.batch_size) / 1e12)
+        del model
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as exp_dir:
+            ngp_config, ngp_model, launches["ngp_train"], ngp_tflop = phase_ngp_train(exp_dir)
+        launches["ngp_render"] = phase_ngp_render(ngp_config, ngp_model)
+        phase_profile(ngp_config, ngp_model, ngp_tflop, label="ngp_profile")
+        update = step_lib.make_occupancy_update_fn(ngp_config, ngp_model)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        _profile("ngp_refresh_profile", lambda i: update(ngp_model.occupancy, gen, i == 0), 2)
+        del ngp_model, update
+        torch.cuda.empty_cache()
+        launches["probe_osplit_bwd"] = phase_probe_osplit_bwd()
+        launches["probe_gather"] = phase_probe_gather()
+        with tempfile.TemporaryDirectory() as root:
+            kitti_launches, kitti_ngp_config, kitti_ngp, kitti_mip_eval = phase_kitti(root)
+            launches.update(kitti_launches)
+            launches.update(phase_nerfpp(root))
+            launches.update(phase_bf16_nerfpp(root))
+            launches.update(phase_ngp_eval(kitti_ngp_config, kitti_ngp))
+            del kitti_ngp
+            launches.update(phase_bf16_synthetic(train_ms_f32))
+            launches.update(phase_priors(root))
+            launches.update(phase_priors_photo(root))
+            launches.update(phase_eval_render(root, kitti_mip_eval))
+            launches.update(phase_cameras(root))
+            launches.update(phase_depth_losses(root))
+            launches.update(phase_ngp_layouts(root))
+            launches.update(phase_mip_options(root))
+            launches.update(phase_viewer(root))
+        launches.update(phase_lpips())
+        launches.update(phase_gate())
+        with tempfile.TemporaryDirectory() as root:
+            launches.update(phase_blender(root))
+            launches.update(phase_public_bench(root))
+        launches.update(phase_bench_probes())
+        launches.update(phase_ddp(smi))
     _hold_grad_launches()
     summary(k, launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

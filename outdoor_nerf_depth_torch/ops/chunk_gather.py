@@ -16,46 +16,26 @@ replace the two Pallas kernels of `benchmarks/probes/gather_attack_probe.py`:
 
 Both kernels live in `csrc/chunk_gather.cu`. Each function uses its plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises. On the card, `idx` in [0, chunk) is the caller's contract: P1 does
-not check it (an index outside reads outside the table), P2 turns it into a
-zero row. The plain versions raise on it for CPU tensors. `TAKE_LAUNCHES` (P1) and
-`ONEHOT_LAUNCHES` (P2) count kernel launches.
+or raises (`cuda_build.use_kernel`). On the card, `idx` in [0, chunk) is the
+caller's contract: P1 does not check it (an index outside reads outside the
+table), P2 turns it into a zero row. The plain versions raise on it for CPU
+tensors. `cuda_build.launches()` counts the launches of P1 and P2.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from outdoor_nerf_depth_torch.ops import cuda_build
+from outdoor_nerf_depth_torch.ops.cuda_build import I32, I64, PTR
 
 SOURCE = "chunk_gather"
 LANES = 16  # one oct-layout row: 8 corners x F = 2
 TAKE_CHUNK = 2048  # P1: f32 rows held on chip (128 KiB)
 ONEHOT_CHUNK, ONEHOT_TILE = 512, 256  # P2: rows per chunk, queries per tile
 SMEM_BYTES = 232448  # dynamic shared memory one block can use on Hopper
-
-TAKE_LAUNCHES = 0
-ONEHOT_LAUNCHES = 0
-
-
-def reset_launch_counts():
-    global TAKE_LAUNCHES, ONEHOT_LAUNCHES
-    TAKE_LAUNCHES = 0
-    ONEHOT_LAUNCHES = 0
-
-
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.chunk_take_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-        lib.chunk_take_f32.restype = i32
-        lib.onehot_extract_bf16.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, ptr]
-        lib.onehot_extract_bf16.restype = i32
-        lib._argtypes_set = True
-    return lib
+P1 = cuda_build.Kernel("P1", SOURCE, "chunk_take_f32", PTR, PTR, PTR, I64, I32, I32)
+P2 = cuda_build.Kernel("P2", SOURCE, "onehot_extract_bf16", PTR, PTR, PTR, I64, I64, I32, I32)
 
 
 def _check(idx: torch.Tensor, table: torch.Tensor, dtype: torch.dtype):
@@ -85,11 +65,6 @@ def _check_kernel_inputs(idx: torch.Tensor, table: torch.Tensor):
                          f"got them on {idx.device}")
 
 
-def _launched(code: int, name: str):
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {code}")
-
-
 def take_from_chunk_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     _check(idx, table, torch.float32)
     _check_range(idx, table.shape[0])
@@ -98,7 +73,6 @@ def take_from_chunk_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tenso
 
 def take_from_chunk_cuda(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """P1 on CUDA tensors; idx in [0, table rows) is the caller's contract."""
-    global TAKE_LAUNCHES
     _check(idx, table, torch.float32)
     _check_kernel_inputs(idx, table)
     chunk = table.shape[0]
@@ -106,22 +80,16 @@ def take_from_chunk_cuda(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor
         raise ValueError(f"P1 holds 1 to {SMEM_BYTES // (LANES * 4)} table rows, got {chunk}")
     out = torch.empty((idx.shape[0], LANES), dtype=torch.float32, device=idx.device)
     sms = torch.cuda.get_device_properties(idx.device).multi_processor_count
-    with torch.cuda.device(idx.device):
-        code = _lib().chunk_take_f32(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                     idx.shape[0], chunk, sms,
-                                     torch.cuda.current_stream(idx.device).cuda_stream)
-    _launched(code, "chunk_take")
-    TAKE_LAUNCHES += 1
+    P1(idx.device, idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0], chunk, sms,
+       key=lambda: (idx.shape[0], chunk))
     return out
 
 
 def take_from_chunk(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """out[q] = table[idx[q]] for an f32 [chunk, 16] table and int32 idx in [0, chunk)."""
-    if idx.device.type == "cpu":
-        return take_from_chunk_plain(idx, table)
-    if idx.is_cuda:
+    if cuda_build.use_kernel(idx, "chunk gather"):
         return take_from_chunk_cuda(idx.contiguous(), table.contiguous())
-    raise ValueError(f"no chunk gather on {idx.device}")
+    return take_from_chunk_plain(idx, table)
 
 
 def _check_onehot(table: torch.Tensor, chunk: int, tile: int):
@@ -153,17 +121,12 @@ def onehot_extract_cuda(idx: torch.Tensor, table: torch.Tensor, chunk: int = ONE
                         tile: int = ONEHOT_TILE) -> torch.Tensor:
     """P2 on CUDA tensors; idx in [0, chunk) is the caller's contract (an
     index outside gives a zero row)."""
-    global ONEHOT_LAUNCHES
     _check(idx, table, torch.bfloat16)
     _check_onehot(table, chunk, tile)
     _check_kernel_inputs(idx, table)
     out = torch.empty((idx.shape[0], LANES), dtype=torch.float32, device=idx.device)
-    with torch.cuda.device(idx.device):
-        code = _lib().onehot_extract_bf16(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                          idx.shape[0], table.shape[0], chunk, tile,
-                                          torch.cuda.current_stream(idx.device).cuda_stream)
-    _launched(code, "onehot_extract")
-    ONEHOT_LAUNCHES += 1
+    P2(idx.device, idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0],
+       table.shape[0], chunk, tile, key=lambda: (idx.shape[0], table.shape[0], chunk, tile))
     return out
 
 
@@ -171,8 +134,6 @@ def onehot_extract(idx: torch.Tensor, table: torch.Tensor, chunk: int = ONEHOT_C
                    tile: int = ONEHOT_TILE) -> torch.Tensor:
     """Rows of a bf16 [rows, 16] table as f32: query q of tile q // tile reads
     row (q // tile mod rows // chunk) * chunk + idx[q], idx int32 in [0, chunk)."""
-    if idx.device.type == "cpu":
-        return onehot_extract_plain(idx, table, chunk, tile)
-    if idx.is_cuda:
+    if cuda_build.use_kernel(idx, "one-hot extraction"):
         return onehot_extract_cuda(idx.contiguous(), table.contiguous(), chunk, tile)
-    raise ValueError(f"no one-hot extraction on {idx.device}")
+    return onehot_extract_plain(idx, table, chunk, tile)

@@ -68,7 +68,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from outdoor_nerf_depth_torch.ops import hashgrid_grad, mathx, prefix_scan
+from outdoor_nerf_depth_torch.ops import cuda_build, hashgrid_grad, mathx, prefix_scan
 from outdoor_nerf_depth_torch.utils import tracing
 
 # Large primes of the Instant-NGP spatial hash (x uses stride 1).
@@ -570,18 +570,16 @@ def _oct_split_forward(x, table, resolutions, table_size: int, dtype=torch.float
     Counts the levels it encodes in one pass (`hashgrid.fwd_levels`)."""
     n_levels, _, n_feats = table.shape
     points = x.reshape(-1, 3)
-    if table.is_cuda:
+    if cuda_build.use_kernel(table, "osplit encode"):
         # Corners 2k and 2k + 1 differ in z alone: rows o and o + 1.
         strides = [int(r) + 1 if _is_dense(int(r), table_size) else 0 for r in resolutions]
         pairs = [o for r in resolutions for o in _oct_offsets(int(r), table_size)[::2]]
         out, *saved = hashgrid_grad.oct_split_encode_cuda(
             points.contiguous(), table.contiguous(), resolutions, strides, pairs, dtype, keys,
             rows)
-    elif table.device.type == "cpu":
+    else:
         out, *saved = _oct_split_forward_plain(points, table, resolutions, table_size, dtype,
                                                keys, rows)
-    else:
-        raise ValueError(f"no osplit encode implementation on {table.device}")
     tracing.count("hashgrid.fwd_levels", n_levels)
     return (out.reshape(x.shape[:-1] + (n_levels * n_feats,)), *saved)
 

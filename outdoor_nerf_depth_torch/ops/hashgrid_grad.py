@@ -28,33 +28,32 @@ in PyTorch ops, `fold_segments_plain` as `ops/hashgrid.py`'s
 gradients use too.
 
 `sorted_products` and `fold_segments` use the plain version only for a
-tensor on the CPU; for a CUDA tensor they launch the kernel or raise.
-`ENCODE_LAUNCHES` (K4), `PRODUCT_LAUNCHES` (K3a) and `FOLD_LAUNCHES` (K3b)
-count kernel launches.
+tensor on the CPU; for a CUDA tensor they launch the kernel or raise
+(`cuda_build.use_kernel`). `cuda_build.launches()` counts the launches of
+K4, K3a and K3b, and a recording (`cuda_build.recording`) collects their
+launch keys: K4's (P, resolutions, log2 T, F, dtype, keys, rows), K3a's
+g_lf shape (P, L, F) and K3b's (P, T, F, corner offsets, level rows).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 
 from outdoor_nerf_depth_torch.ops import cuda_build
+from outdoor_nerf_depth_torch.ops.cuda_build import I32, I64, PTR
 
 SOURCE = "hashgrid_grad"
 CORNERS = 8
 MAX_LEVELS = 64  # kMaxLevels in the source: the LevelPlan kernel argument's size
 FEATURES = (1, 2, 4, 8, 16)  # 8F lanes must divide the scan's 128
-
-ENCODE_LAUNCHES = 0
-PRODUCT_LAUNCHES = 0
-FOLD_LAUNCHES = 0
-
-
-def reset_launch_counts():
-    global ENCODE_LAUNCHES, PRODUCT_LAUNCHES, FOLD_LAUNCHES
-    ENCODE_LAUNCHES = PRODUCT_LAUNCHES = FOLD_LAUNCHES = 0
+K4 = cuda_build.Kernel("K4", SOURCE, "osplit_encode", PTR, PTR, PTR, I32, PTR, PTR, PTR, I64,
+                       I64, I64, I32, PTR, PTR, PTR)
+K3A = cuda_build.Kernel("K3a", SOURCE, "osplit_grad_products_f32", PTR, PTR, PTR, PTR, I64, I64,
+                        I32)
+K3B = cuda_build.Kernel("K3b", SOURCE, "osplit_grad_fold_f32", PTR, PTR, PTR, I64, I64, I64, I32,
+                        PTR, PTR)
 
 
 # ---- plain versions --------------------------------------------------------
@@ -93,21 +92,6 @@ def fold_segments_plain(csum: torch.Tensor, ends: torch.Tensor, offsets: Sequenc
 # ---- kernels ---------------------------------------------------------------
 
 
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.osplit_encode.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr, i64, i64, i64, i32,
-                                      ptr, ptr, ptr, ptr]
-        lib.osplit_encode.restype = i32
-        lib.osplit_grad_products_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-        lib.osplit_grad_products_f32.restype = i32
-        lib.osplit_grad_fold_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, i32, ptr, ptr, ptr]
-        lib.osplit_grad_fold_f32.restype = i32
-        lib._argtypes_set = True
-    return lib
-
-
 def _check_cuda(x: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str):
     if not (x.is_cuda and x.dtype == dtype and x.is_contiguous() and tuple(x.shape) == shape):
         raise ValueError(f"{name}: kernel takes a contiguous {dtype} CUDA tensor of shape "
@@ -121,10 +105,6 @@ def _check_sizes(n_levels: int, n_feats: int):
         raise ValueError(f"kernel takes {FEATURES} features a level, got {n_feats}")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def oct_split_encode_cuda(x: torch.Tensor, table: torch.Tensor, resolutions, strides,
                           pair_offsets, dtype: torch.dtype = torch.float32, keys: bool = False,
                           rows: bool = False):
@@ -135,7 +115,6 @@ def oct_split_encode_cuda(x: torch.Tensor, table: torch.Tensor, resolutions, str
     `pair_offsets`. Returns (features [P, L F] in `dtype`, keys [L, P]
     int32 and w_all [P, L, 8] float32 if `keys`, rows [P, L, 8F] bfloat16
     if `rows`; None for what is not asked for)."""
-    global ENCODE_LAUNCHES
     n_levels, table_size, n_feats = table.shape
     _check_sizes(n_levels, n_feats)
     n_points = x.shape[0]
@@ -151,9 +130,9 @@ def oct_split_encode_cuda(x: torch.Tensor, table: torch.Tensor, resolutions, str
                          f"strides, {len(pair_offsets)} pair offsets")
     if keys and n_levels * table_size > torch.iinfo(torch.int32).max:
         raise ValueError(f"{n_levels} levels of {table_size} rows overflow the int32 sort keys")
-    plan_res = (ctypes.c_int * n_levels)(*(int(r) for r in resolutions))
-    plan_strides = (ctypes.c_int * n_levels)(*(int(s) for s in strides))
-    plan_pairs = (ctypes.c_int * len(pair_offsets))(*(int(o) for o in pair_offsets))
+    plan_res = (I32 * n_levels)(*(int(r) for r in resolutions))
+    plan_strides = (I32 * n_levels)(*(int(s) for s in strides))
+    plan_pairs = (I32 * len(pair_offsets))(*(int(o) for o in pair_offsets))
     dev = table.device
     out = torch.empty((n_points, n_levels * n_feats), dtype=dtype, device=dev)
     level_keys = torch.empty((n_levels, n_points), dtype=torch.int32, device=dev) if keys else None
@@ -162,14 +141,11 @@ def oct_split_encode_cuda(x: torch.Tensor, table: torch.Tensor, resolutions, str
                             device=dev) if rows else None)
     if n_points:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        with torch.cuda.device(dev):
-            code = _lib().osplit_encode(
-                x.data_ptr(), table.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
-                ptr(level_keys), ptr(w_all), ptr(gathered), n_levels, n_points, table_size,
-                n_feats, plan_res, plan_strides, plan_pairs, _stream(table))
-        if code != 0:
-            raise RuntimeError(f"osplit_encode launch failed: cudaError {code}")
-        ENCODE_LAUNCHES += 1
+        K4(dev, x.data_ptr(), table.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
+           ptr(level_keys), ptr(w_all), ptr(gathered), n_levels, n_points, table_size, n_feats,
+           plan_res, plan_strides, plan_pairs,
+           key=lambda: (n_points, tuple(int(r) for r in resolutions), table_size.bit_length() - 1,
+                        n_feats, str(dtype).split(".")[-1], bool(keys), bool(rows)))
     return out, level_keys, w_all, gathered
 
 
@@ -177,7 +153,6 @@ def sorted_products_cuda(order: torch.Tensor, w_all: torch.Tensor,
                          g_lf: torch.Tensor) -> torch.Tensor:
     """K3a on CUDA tensors: order [L P] int64, w_all [P, L, 8] and g_lf
     [P, L, F] float32, all contiguous."""
-    global PRODUCT_LAUNCHES
     n_points, n_levels, n_feats = g_lf.shape
     _check_sizes(n_levels, n_feats)
     _check_cuda(order, torch.int64, (n_levels * n_points,), "order")
@@ -185,30 +160,22 @@ def sorted_products_cuda(order: torch.Tensor, w_all: torch.Tensor,
     _check_cuda(g_lf, torch.float32, (n_points, n_levels, n_feats), "g_lf")
     vals = torch.empty((n_levels, n_points, CORNERS * n_feats), device=g_lf.device)
     if n_points:
-        with torch.cuda.device(g_lf.device):
-            code = _lib().osplit_grad_products_f32(
-                order.data_ptr(), w_all.data_ptr(), g_lf.data_ptr(), vals.data_ptr(), n_levels,
-                n_points, n_feats, _stream(g_lf))
-        if code != 0:
-            raise RuntimeError(f"osplit_grad_products launch failed: cudaError {code}")
-        PRODUCT_LAUNCHES += 1
+        K3A(g_lf.device, order.data_ptr(), w_all.data_ptr(), g_lf.data_ptr(), vals.data_ptr(),
+            n_levels, n_points, n_feats, key=lambda: tuple(g_lf.shape))
     return vals
 
 
 def sorted_products(order: torch.Tensor, w_all: torch.Tensor, g_lf: torch.Tensor) -> torch.Tensor:
     """[L, P, 8F] bf16-rounded products in sorted order (see the plain version)."""
-    if g_lf.device.type == "cpu":
-        return sorted_products_plain(order, w_all, g_lf)
-    if g_lf.is_cuda:
+    if cuda_build.use_kernel(g_lf, "osplit gradient"):
         return sorted_products_cuda(order.contiguous(), w_all.contiguous(), g_lf.contiguous())
-    raise ValueError(f"no osplit gradient implementation on {g_lf.device}")
+    return sorted_products_plain(order, w_all, g_lf)
 
 
 def fold_segments_cuda(csum: torch.Tensor, ends: torch.Tensor, offsets: Sequence,
                        level_rows: Sequence[int], table_size: int) -> torch.Tensor:
     """K3b on CUDA tensors: csum [L, P, 8F] float32 and ends [L T] int32,
     contiguous; offsets and level_rows as Python integers, passed by value."""
-    global FOLD_LAUNCHES
     n_levels, n_points, lanes = csum.shape
     n_feats = lanes // CORNERS
     _check_sizes(n_levels, n_feats)
@@ -221,24 +188,20 @@ def fold_segments_cuda(csum: torch.Tensor, ends: torch.Tensor, offsets: Sequence
     if len(flat) != CORNERS * n_levels:
         raise ValueError(f"expected {CORNERS} corner offsets a level, got {offsets}")
     out = torch.empty((n_levels, table_size, n_feats), device=csum.device)
-    plan_offsets = (ctypes.c_int * len(flat))(*flat)
-    plan_rows = (ctypes.c_int * n_levels)(*(int(r) for r in level_rows))
-    with torch.cuda.device(csum.device):
-        code = _lib().osplit_grad_fold_f32(
-            csum.data_ptr(), ends.data_ptr(), out.data_ptr(), n_levels, n_points, table_size,
-            n_feats, plan_offsets, plan_rows, _stream(csum))
-    if code != 0:
-        raise RuntimeError(f"osplit_grad_fold launch failed: cudaError {code}")
-    FOLD_LAUNCHES += 1
+    plan_offsets = (I32 * len(flat))(*flat)
+    plan_rows = (I32 * n_levels)(*(int(r) for r in level_rows))
+    K3B(csum.device, csum.data_ptr(), ends.data_ptr(), out.data_ptr(), n_levels, n_points,
+        table_size, n_feats, plan_offsets, plan_rows,
+        key=lambda: (n_points, table_size, n_feats,
+                     tuple(tuple(int(o) for o in level) for level in offsets),
+                     tuple(int(r) for r in level_rows)))
     return out
 
 
 def fold_segments(csum: torch.Tensor, ends: torch.Tensor, offsets: Sequence,
                   level_rows: Sequence[int], table_size: int) -> torch.Tensor:
     """[L, T, F] canonical table gradient (see the plain version)."""
-    if csum.device.type == "cpu":
-        return fold_segments_plain(csum, ends, offsets, level_rows, table_size)
-    if csum.is_cuda:
+    if cuda_build.use_kernel(csum, "osplit gradient"):
         return fold_segments_cuda(csum.contiguous(), ends.contiguous(), offsets, level_rows,
                                   table_size)
-    raise ValueError(f"no osplit gradient implementation on {csum.device}")
+    return fold_segments_plain(csum, ends, offsets, level_rows, table_size)

@@ -20,31 +20,23 @@ cast to f32 before the kernel and back after it).
 
 `cumsum` and `cumsum_batched` use the plain version, `torch.cumsum` in f32,
 only for a tensor on the CPU; for a CUDA tensor they launch the kernel or
-raise. `LAUNCHES` (K2a) and `BATCHED_LAUNCHES` (K2b) count kernel launches,
-so a run can show that it went through the kernels.
+raise (`cuda_build.use_kernel`). `cuda_build.launches()` counts the launches
+of K2a and K2b, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from outdoor_nerf_depth_torch.ops import cuda_build
+from outdoor_nerf_depth_torch.ops.cuda_build import I32, I64, PTR
 
 LANE = 128
 TILE_ELEMS = 16384  # elements per tile of the kernel (kTileElems in the source,
                     # which refuses a scratch sized for another tile)
 SOURCE = "prefix_scan"
-
-LAUNCHES = 0
-BATCHED_LAUNCHES = 0
-
-
-def reset_launch_counts():
-    global LAUNCHES, BATCHED_LAUNCHES
-    LAUNCHES = 0
-    BATCHED_LAUNCHES = 0
+K2A, K2B = (cuda_build.Kernel(kid, SOURCE, "prefix_scan_batched_f32", PTR, PTR, PTR, I64, I64,
+                              I32, I64) for kid in ("K2a", "K2b"))
 
 
 def _check_lanes(x: torch.Tensor, ndim: int = 2):
@@ -76,53 +68,35 @@ def cumsum_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x.to(torch.float32), dim=0).to(x.dtype)
 
 
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.prefix_scan_batched_f32.argtypes = [ptr, ptr, ptr, i64, i64, i32, i64, ptr]
-        lib.prefix_scan_batched_f32.restype = i32
-        lib._argtypes_set = True
-    return lib
-
-
-def _launch(x: torch.Tensor, out: torch.Tensor):
+def _launch(kernel: cuda_build.Kernel, x: torch.Tensor, out: torch.Tensor, shape):
     """The kernel from a non-empty contiguous [B, N, lanes] float32 CUDA
-    tensor into `out`, of the same shape."""
+    tensor into `out`, of the same shape; `shape`, the caller's input
+    shape, is the launch key."""
     batch, rows, lanes = x.shape
     tiles, words = tile_plan(batch, rows, lanes)
     # Status words and ticket start at zero on every call (one memset).
     scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _lib().prefix_scan_batched_f32(
-            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, rows, lanes, tiles,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if code != 0:
-        raise RuntimeError(f"prefix_scan launch failed: cudaError {code}")
+    kernel(x.device, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, rows, lanes, tiles,
+           key=lambda: tuple(shape))
 
 
 def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
     """K2a on a contiguous [N, lanes] CUDA tensor, accumulated in f32, in x's dtype."""
-    global LAUNCHES
     _check_lanes(x)
     _check_kernel_input(x)
     x32 = x.to(torch.float32)
     out = torch.empty_like(x32)
     if x.numel():
-        _launch(x32[None], out[None])
-        LAUNCHES += 1
+        _launch(K2A, x32[None], out[None], x.shape)
     return out.to(x.dtype)
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum along axis 0 of [N, lanes] (lanes | 128)."""
     _check_lanes(x)
-    if x.device.type == "cpu":
-        return cumsum_plain(x)
-    if x.is_cuda:
+    if cuda_build.use_kernel(x, "prefix-scan"):
         return cumsum_cuda(x.contiguous())
-    raise ValueError(f"no prefix-scan implementation on {x.device}")
+    return cumsum_plain(x)
 
 
 def cumsum_batched_plain(x: torch.Tensor) -> torch.Tensor:
@@ -132,22 +106,18 @@ def cumsum_batched_plain(x: torch.Tensor) -> torch.Tensor:
 
 def cumsum_batched_cuda(x: torch.Tensor) -> torch.Tensor:
     """K2b on a contiguous [B, N, lanes] CUDA tensor, accumulated in f32, in x's dtype."""
-    global BATCHED_LAUNCHES
     _check_lanes(x, ndim=3)
     _check_kernel_input(x)
     x32 = x.to(torch.float32)
     out = torch.empty_like(x32)
     if x.numel():
-        _launch(x32, out)
-        BATCHED_LAUNCHES += 1
+        _launch(K2B, x32, out, x.shape)
     return out.to(x.dtype)
 
 
 def cumsum_batched(x: torch.Tensor) -> torch.Tensor:
     """Independent inclusive prefix sums along axis 1 of [B, N, lanes] (lanes | 128)."""
     _check_lanes(x, ndim=3)
-    if x.device.type == "cpu":
-        return cumsum_batched_plain(x)
-    if x.is_cuda:
+    if cuda_build.use_kernel(x, "prefix-scan"):
         return cumsum_batched_cuda(x.contiguous())
-    raise ValueError(f"no prefix-scan implementation on {x.device}")
+    return cumsum_batched_plain(x)

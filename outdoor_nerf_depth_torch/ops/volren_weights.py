@@ -9,29 +9,22 @@ note there). Beside them sit plain PyTorch versions of both directions:
   weights_from_tau_bwd_plain(g, w, e) -> dtau  reverse exclusive cumsum
 
 `WeightsFromTau` uses the plain versions only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. `FWD_LAUNCHES` and
-`BWD_LAUNCHES` count kernel launches, so a run can show that it went through
-the kernels.
+CUDA tensor it launches the kernel or raises (`cuda_build.use_kernel`).
+`cuda_build.launches()` counts the launches of K1a and K1b, so a run can
+show that it went through the kernels.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from outdoor_nerf_depth_torch.ops import cuda_build
+from outdoor_nerf_depth_torch.ops.cuda_build import I32, PTR
 
 TAU_MAX = 1e4  # exp(-1e4) is exactly 0 in f32; an opaque background is +inf
 SOURCE = "volren_weights"
-
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-
-
-def reset_launch_counts():
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = BWD_LAUNCHES = 0
+K1A = cuda_build.Kernel("K1a", SOURCE, "volren_weights_fwd", PTR, PTR, PTR, I32, I32)
+K1B = cuda_build.Kernel("K1b", SOURCE, "volren_weights_bwd", PTR, PTR, PTR, PTR, I32, I32)
 
 
 def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -53,18 +46,6 @@ def weights_from_tau_bwd_plain(g, w, e):
     return g * e - suffix
 
 
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.volren_weights_fwd.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-        lib.volren_weights_fwd.restype = i32
-        lib.volren_weights_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
-        lib.volren_weights_bwd.restype = i32
-        lib._argtypes_set = True
-    return lib
-
-
 def _check_2d(*xs: torch.Tensor):
     for x in xs:
         if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous()):
@@ -78,47 +59,22 @@ def _check_2d(*xs: torch.Tensor):
         raise ValueError("kernel indexes rays and samples with 32-bit ints")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(code: int, what: str):
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {code}")
-
-
 def weights_fwd_cuda(tau: torch.Tensor):
     """K1a on [R, S] float32 CUDA `tau` -> (w, e)."""
-    global FWD_LAUNCHES
     _check_2d(tau)
     w, e = torch.empty_like(tau), torch.empty_like(tau)
-    with torch.cuda.device(tau.device):
-        code = _lib().volren_weights_fwd(
-            tau.data_ptr(), w.data_ptr(), e.data_ptr(), tau.shape[0], tau.shape[1], _stream(tau)
-        )
-    _raise_on(code, "volren_weights_fwd")
-    FWD_LAUNCHES += 1
+    K1A(tau.device, tau.data_ptr(), w.data_ptr(), e.data_ptr(), tau.shape[0], tau.shape[1],
+        key=lambda: tuple(tau.shape))
     return w, e
 
 
 def weights_bwd_cuda(g: torch.Tensor, w: torch.Tensor, e: torch.Tensor):
     """K1b on [R, S] float32 CUDA tensors -> dtau."""
-    global BWD_LAUNCHES
     _check_2d(g, w, e)
     dtau = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        code = _lib().volren_weights_bwd(
-            g.data_ptr(), w.data_ptr(), e.data_ptr(), dtau.data_ptr(),
-            g.shape[0], g.shape[1], _stream(g),
-        )
-    _raise_on(code, "volren_weights_bwd")
-    BWD_LAUNCHES += 1
+    K1B(g.device, g.data_ptr(), w.data_ptr(), e.data_ptr(), dtau.data_ptr(), g.shape[0],
+        g.shape[1], key=lambda: tuple(g.shape))
     return dtau
-
-
-def _require_cpu_or_cuda(x: torch.Tensor):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no compositing-weights implementation on {x.device}")
 
 
 class WeightsFromTau(torch.autograd.Function):
@@ -126,13 +82,10 @@ class WeightsFromTau(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tau):
-        _require_cpu_or_cuda(tau)
+        kernel = cuda_build.use_kernel(tau, "compositing-weights")
         shape = tau.shape
         flat = tau.reshape(-1, shape[-1]).to(torch.float32).contiguous()
-        if flat.is_cuda:
-            w, e = weights_fwd_cuda(flat)
-        else:
-            w, e = weights_from_tau_plain(flat)
+        w, e = weights_fwd_cuda(flat) if kernel else weights_from_tau_plain(flat)
         ctx.save_for_backward(w, e)
         ctx.shape = shape
         return w.reshape(shape)
@@ -141,7 +94,7 @@ class WeightsFromTau(torch.autograd.Function):
     def backward(ctx, g):
         w, e = ctx.saved_tensors
         g = g.reshape(w.shape).to(torch.float32).contiguous()
-        if g.is_cuda:
+        if cuda_build.use_kernel(g, "compositing-weights"):
             dtau = weights_bwd_cuda(g, w, e)
         else:
             dtau = weights_from_tau_bwd_plain(g, w, e)

@@ -18,7 +18,9 @@ bench operating points (`workloads`).
 
 Each runs on CUDA unless asked for the CPU (`run(device="cpu")`,
 `--device cpu`), catches no kernel failure, and returns a dict of seconds
-(or rates) from `timeit` or a named method, with the device it ran on.
+(or rates) from `timeit` or a named method, with the device it ran on, and
+the kernel launches its calls made, read from the port's launch record
+(`ops/cuda_build.py:launches`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import time
 
 import torch
 
-from outdoor_nerf_depth_torch.ops import chunk_gather, hashgrid_grad, prefix_scan, volren_weights
+from outdoor_nerf_depth_torch.ops import cuda_build
 
 TIMING_METHOD = ("host clock around one call, the device synchronized before and after it; "
                  "median of `reps` calls after one untimed call")
@@ -54,25 +56,16 @@ def timeit(fn, device: torch.device, reps: int):
     return statistics.median(times), reps + 1
 
 
-def timed_launches(fn, device: torch.device, reps: int, count):
-    """timeit(...) plus {"calls", "launches"}: what `count()` rose by over them."""
-    before = count()
+def timed_launches(fn, device: torch.device, reps: int, kid: str):
+    """timeit(...) plus {"calls", "launches"}: the launches of kernel `kid` over them."""
+    before = cuda_build.launches()
     seconds, calls = timeit(fn, device, reps)
-    return seconds, {"calls": calls, "launches": count() - before}
-
-
-def kernel_launches() -> dict:
-    """The port's kernel launches so far in this process, by kernel id."""
-    return {"K1a": volren_weights.FWD_LAUNCHES, "K1b": volren_weights.BWD_LAUNCHES,
-            "K2a": prefix_scan.LAUNCHES, "K2b": prefix_scan.BATCHED_LAUNCHES,
-            "K3a": hashgrid_grad.PRODUCT_LAUNCHES, "K3b": hashgrid_grad.FOLD_LAUNCHES,
-            "K4": hashgrid_grad.ENCODE_LAUNCHES,
-            "P1": chunk_gather.TAKE_LAUNCHES, "P2": chunk_gather.ONEHOT_LAUNCHES}
+    return seconds, {"calls": calls, "launches": launches_since(before)[kid]}
 
 
 def launches_since(before: dict) -> dict:
-    """The launches of each kernel since `kernel_launches()` gave `before`."""
-    return {k: n - before[k] for k, n in kernel_launches().items()}
+    """The launches of each kernel since `cuda_build.launches()` gave `before`."""
+    return {k: n - before[k] for k, n in cuda_build.launches().items()}
 
 
 @functools.cache

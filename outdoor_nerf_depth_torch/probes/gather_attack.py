@@ -81,8 +81,7 @@ def run(device=None, queries: int = QUERIES, reps: int = 3,
     table = torch.randn((chunk_gather.TAKE_CHUNK, LANES), generator=gen, device=dev)
     idx = randint(chunk_gather.TAKE_CHUNK, q)
     seconds, launches["P1"] = timed_launches(
-        lambda: chunk_gather.take_from_chunk(idx, table), dev, reps,
-        lambda: chunk_gather.TAKE_LAUNCHES)
+        lambda: chunk_gather.take_from_chunk(idx, table), dev, reps, "P1")
     results["C_smem_take_ns_per_row"] = seconds / q * 1e9
     results["C_library_ns_per_row"] = t(lambda: torch.index_select(table, 0, idx)) / q * 1e9
     results["C_max_abs_err"] = float((chunk_gather.take_from_chunk(idx, table)
@@ -94,8 +93,7 @@ def run(device=None, queries: int = QUERIES, reps: int = 3,
     table = torch.randn((onehot_rows, LANES), generator=gen, device=dev).to(torch.bfloat16)
     idx = randint(chunk, q)
     seconds, launches["P2"] = timed_launches(
-        lambda: chunk_gather.onehot_extract(idx, table, chunk, tile), dev, reps,
-        lambda: chunk_gather.ONEHOT_LAUNCHES)
+        lambda: chunk_gather.onehot_extract(idx, table, chunk, tile), dev, reps, "P2")
     results["D_onehot_ns_per_row"] = seconds / q * 1e9
     results["D_onehot_total_s"] = seconds
     rows = chunk_gather.onehot_rows(q, onehot_rows, chunk, tile, dev) + idx

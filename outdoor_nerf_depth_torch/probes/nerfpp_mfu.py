@@ -25,7 +25,8 @@ import time
 
 import torch
 
-from outdoor_nerf_depth_torch.probes import card, kernel_launches, launches_since, sync, workloads
+from outdoor_nerf_depth_torch.ops import cuda_build
+from outdoor_nerf_depth_torch.probes import card, launches_since, sync, workloads
 from outdoor_nerf_depth_torch.train.loop import resolve_device
 
 SWEEP = ((1024, 8), (1024, 32), (1024, 128), (4096, 8), (4096, 32))
@@ -61,7 +62,7 @@ def dispatch_times(trainer, k: int, n_meas: int, warm: int = WARM_DISPATCHES):
 
     for _ in range(warm):
         dispatch()
-    before, times = kernel_launches(), []
+    before, times = cuda_build.launches(), []
     for _ in range(n_meas):
         sync(trainer.device)
         t0 = time.perf_counter()

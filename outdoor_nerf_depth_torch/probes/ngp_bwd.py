@@ -47,10 +47,6 @@ LEVELS, FEATURES = 16, 2
 N_MIN, N_MAX = 16, 2048
 
 
-def _k2a():
-    return prefix_scan.LAUNCHES
-
-
 def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: int = 3,
         seed: int = 0) -> dict:
     dev = resolve_device(device)
@@ -70,7 +66,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
 
     def stage(name, fn):
         with torch.no_grad():
-            seconds, counted = timed_launches(fn, dev, reps, _k2a)
+            seconds, counted = timed_launches(fn, dev, reps, "K2a")
         results[f"{name}_s"] = seconds
         results["launches"][name] = counted
         return fn()
@@ -134,7 +130,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
         out = hashgrid.OctEncode.apply(x, tg, res, table_size)
         return torch.autograd.grad(out, tg, cotangent)[0]
 
-    seconds, counted = timed_launches(full, dev, reps, _k2a)
+    seconds, counted = timed_launches(full, dev, reps, "K2a")
     results["full_bwd_s"], results["launches"]["full_bwd"] = seconds, counted
     want = full()
     results["composed_vs_backward_max_abs"] = float(torch.max(torch.abs(composed - want)))

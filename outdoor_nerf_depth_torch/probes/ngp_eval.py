@@ -28,7 +28,6 @@ import torch
 
 from outdoor_nerf_depth_torch.data import rays as rays_lib
 from outdoor_nerf_depth_torch.ops import occupancy as occ_lib
-from outdoor_nerf_depth_torch.ops import volren_weights
 from outdoor_nerf_depth_torch.probes import TIMING_METHOD, card, timed_launches, workloads
 from outdoor_nerf_depth_torch.train import step as step_lib
 from outdoor_nerf_depth_torch.train.loop import resolve_device
@@ -89,8 +88,7 @@ def run(device=None, chunks=CHUNKS, reps: int = 10, max_samples: int = 64, seed:
         entry, launches = {}, {}
         for mode in MODES:
             seconds, launches[mode] = timed_launches(
-                lambda: step_lib.render_image(model, batch, chunk, dev, mode), dev, reps,
-                lambda: volren_weights.FWD_LAUNCHES)
+                lambda: step_lib.render_image(model, batch, chunk, dev, mode), dev, reps, "K1a")
             entry[f"{mode}_s"] = seconds
             entry[mode] = chunk / seconds
         entry["speedup_iter_vs_dense"] = entry["iterative"] / entry["train"]

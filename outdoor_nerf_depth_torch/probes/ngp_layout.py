@@ -29,7 +29,7 @@ import sys
 
 import torch
 
-from outdoor_nerf_depth_torch.ops import hashgrid, prefix_scan
+from outdoor_nerf_depth_torch.ops import hashgrid
 from outdoor_nerf_depth_torch.probes import TIMING_METHOD, timed_launches, timeit, workloads
 from outdoor_nerf_depth_torch.train.loop import resolve_device
 
@@ -43,10 +43,6 @@ _PLAIN = {"osplit": hashgrid.encode_oct_split, "oct": hashgrid.encode_oct,
           "quad": hashgrid.encode_quad, "corner": hashgrid.encode}
 _SORTED = {"osplit": hashgrid.OctSplitEncode, "oct": hashgrid.OctEncode,
            "quad": hashgrid.QuadEncode, "corner": hashgrid.CornerEncode}
-
-
-def _k2a():
-    return prefix_scan.LAUNCHES
 
 
 def bench_layout(layout: str, device, samples: int = SAMPLES, log2_table_size: int = 19,
@@ -65,7 +61,7 @@ def bench_layout(layout: str, device, samples: int = SAMPLES, log2_table_size: i
         out = _SORTED[layout].apply(x, tg, res, table_size)
         return torch.autograd.grad(torch.sum(torch.sin(out)), tg)
 
-    fwd_bwd_s, launches = timed_launches(fwd_bwd, device, reps, _k2a)
+    fwd_bwd_s, launches = timed_launches(fwd_bwd, device, reps, "K2a")
     return {"fwd_s": fwd_s, "fwd_bwd_s": fwd_bwd_s, "launches": {"K2a": launches}}
 
 

@@ -20,7 +20,8 @@ import json
 import sys
 import time
 
-from outdoor_nerf_depth_torch.probes import card, kernel_launches, launches_since, sync, workloads
+from outdoor_nerf_depth_torch.ops import cuda_build
+from outdoor_nerf_depth_torch.probes import card, launches_since, sync, workloads
 from outdoor_nerf_depth_torch.train.loop import resolve_device
 
 REFRESH_EVERY = 16
@@ -39,7 +40,7 @@ def run(device=None, batch: int = 8192, max_samples: int = 64, steps: int = 20,
     for _ in range(WARM_STEPS):
         stats = trainer.step()
     float(stats["loss"])
-    before = kernel_launches()
+    before = cuda_build.launches()
     sync(dev)
     t0 = time.perf_counter()
     for i in range(steps):

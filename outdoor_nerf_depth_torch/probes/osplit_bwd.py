@@ -47,22 +47,6 @@ LANES = 8 * FEATURES
 SAMPLES = 8192 * 64
 
 
-def _k2a():
-    return prefix_scan.LAUNCHES
-
-
-def _k2b():
-    return prefix_scan.BATCHED_LAUNCHES
-
-
-def _k3a():
-    return hashgrid_grad.PRODUCT_LAUNCHES
-
-
-def _k3b():
-    return hashgrid_grad.FOLD_LAUNCHES
-
-
 def _sentinel_bounds(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     """b_r = #(idx <= r) by the reference's two sentinel sorts."""
     rows = torch.arange(n_rows, device=idx.device, dtype=idx.dtype)
@@ -101,7 +85,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
         return torch.autograd.grad((out * g).sum(), (xg, tg))
 
     results["osplit_fwd_bwd_s"], launches["osplit_fwd_bwd"] = timed_launches(
-        fwd_bwd, dev, reps, _k2b)
+        fwd_bwd, dev, reps, "K2b")
 
     # ---- The table gradient alone: one pass against the per-level pipeline.
     with torch.no_grad():
@@ -116,9 +100,9 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
         return hashgrid._oct_split_table_grad(level_keys, w_all, g_lf, res, table_size)
 
     results["table_grad_one_pass_s"], launches["table_grad_one_pass"] = timed_launches(
-        one_pass, dev, reps, _k2b)
+        one_pass, dev, reps, "K2b")
     results["table_grad_per_level_s"], launches["table_grad_per_level"] = timed_launches(
-        per_level, dev, reps, _k2a)
+        per_level, dev, reps, "K2a")
     got, want = one_pass(), per_level()
     results["one_pass_max_abs_diff"] = float((got - want).abs().max())
     results["table_grad_max_abs"] = float(want.abs().max())
@@ -132,7 +116,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
     results["sort_level_keys_int32_s"] = t(lambda: hashgrid._sorted_level_keys(level_keys))
     sorted_keys, order = hashgrid._sorted_level_keys(level_keys)
     results["products_kernel_s"], launches["products_kernel"] = timed_launches(
-        lambda: hashgrid_grad.sorted_products(order, w_all, g_lf), dev, reps, _k3a)
+        lambda: hashgrid_grad.sorted_products(order, w_all, g_lf), dev, reps, "K3a")
     results["products_plain_s"] = t(
         lambda: hashgrid_grad.sorted_products_plain(order, w_all, g_lf))
     csum = prefix_scan.cumsum_batched(hashgrid_grad.sorted_products_plain(order, w_all, g_lf))
@@ -142,7 +126,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
     offsets = [hashgrid._oct_offsets(r, table_size) for r in res]
     fold_args = (csum, ends, offsets, level_rows, table_size)
     results["fold_kernel_s"], launches["fold_kernel"] = timed_launches(
-        lambda: hashgrid_grad.fold_segments(*fold_args), dev, reps, _k3b)
+        lambda: hashgrid_grad.fold_segments(*fold_args), dev, reps, "K3b")
     results["fold_plain_s"] = t(lambda: hashgrid_grad.fold_segments_plain(*fold_args))
     del got, want, csum, ends, keys64
 
@@ -160,7 +144,7 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
     sv = vals_bf16[sd].to(torch.float32)
     results["cumsum_plain_1lvl_s"] = t(lambda: prefix_scan.cumsum_plain(sv))
     results["cumsum_kernel_1lvl_s"], launches["cumsum_kernel_1lvl"] = timed_launches(
-        lambda: prefix_scan.cumsum(sv), dev, reps, _k2a)
+        lambda: prefix_scan.cumsum(sv), dev, reps, "K2a")
     results["sentinel_sorts_1lvl_s"] = t(lambda: _sentinel_bounds(idx, n_rows))
     rows = torch.arange(n_rows, device=dev, dtype=idx.dtype)
     results["searchsorted_1lvl_s"] = t(lambda: torch.searchsorted(sorted_idx, rows, right=True))
@@ -185,9 +169,9 @@ def run(device=None, samples: int = SAMPLES, log2_table_size: int = 19, reps: in
         [prefix_scan.cumsum_plain(vals_all[lv]) for lv in range(LEVELS)]))
     results["cumsum_kernel_16_separate_s"], launches["cumsum_kernel_16_separate"] = \
         timed_launches(lambda: [prefix_scan.cumsum(vals_all[lv]) for lv in range(LEVELS)],
-                       dev, reps, _k2a)
+                       dev, reps, "K2a")
     results["cumsum_kernel_batched_s"], launches["cumsum_kernel_batched"] = timed_launches(
-        lambda: prefix_scan.cumsum_batched(vals_all), dev, reps, _k2b)
+        lambda: prefix_scan.cumsum_batched(vals_all), dev, reps, "K2b")
     sd_all = torch.sort(idx_all, dim=1, stable=True).indices
     vals_all_bf16 = vals_all.to(torch.bfloat16)
     results["vgather_16_separate_s"] = t(lambda: torch.stack(

@@ -15,7 +15,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from outdoor_nerf_depth_torch.ops import chunk_gather
+from outdoor_nerf_depth_torch.ops import chunk_gather, cuda_build
 
 LANES = chunk_gather.LANES
 
@@ -131,11 +131,11 @@ def test_bad_inputs_raise():
 
 
 def test_cpu_uses_the_plain_versions_and_counts_no_launch():
-    chunk_gather.reset_launch_counts()
+    cuda_build.reset_launches()
     idx = torch.tensor([1, 0, 5], dtype=torch.int32)
     chunk_gather.take_from_chunk(idx, torch.ones((8, LANES)))
     chunk_gather.onehot_extract(idx, torch.ones((32, LANES), dtype=torch.bfloat16), 16, 16)
-    assert (chunk_gather.TAKE_LAUNCHES, chunk_gather.ONEHOT_LAUNCHES) == (0, 0)
+    assert (cuda_build.launches()["P1"], cuda_build.launches()["P2"]) == (0, 0)
     with pytest.raises(ValueError, match="CUDA"):
         chunk_gather.take_from_chunk_cuda(idx, torch.ones((8, LANES)))
     with pytest.raises(ValueError, match="CUDA"):

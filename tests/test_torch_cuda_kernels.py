@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import (chunk_gather, hashgrid, hashgrid_grad, prefix_scan,
-                                         volren_weights)
+from outdoor_nerf_depth_torch.ops import (chunk_gather, cuda_build, hashgrid, hashgrid_grad,
+                                         prefix_scan, volren_weights)
 from outdoor_nerf_depth_torch.utils import tracing
 
 # Forward: one f32 prefix sum in another order; backward: a suffix sum of
@@ -26,6 +26,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _launches(kid):
+    """The launches of kernel `kid` since the last `cuda_build.reset_launches()`."""
+    return cuda_build.launches()[kid]
 
 
 def _inputs(shape, device, seed=11):
@@ -79,10 +84,10 @@ def test_forward_on_a_misaligned_view(cuda_device, shape):
 def test_function_launches_kernels_and_matches_cpu(cuda_device):
     tau, g = _inputs((3, 5, 64), cuda_device, seed=12)
     tau[..., -1] = float("inf")  # opaque background
-    volren_weights.reset_launch_counts()
+    cuda_build.reset_launches()
     tau_gpu = tau.clone().requires_grad_(True)
     (volren_weights.weights_from_tau(tau_gpu) * g).sum().backward()
-    assert (volren_weights.FWD_LAUNCHES, volren_weights.BWD_LAUNCHES) == (1, 1)
+    assert (_launches("K1a"), _launches("K1b")) == (1, 1)
     tau_cpu = tau.cpu().requires_grad_(True)
     w_cpu = volren_weights.weights_from_tau(tau_cpu)
     (w_cpu * g.cpu()).sum().backward()
@@ -111,9 +116,9 @@ def test_prefix_scan_at_the_oct_shape(cuda_device):
     torch.cumsum and a float64 scan, relative to the running |x| sum."""
     x = torch.randn(OCT_SCAN_SHAPE, generator=torch.Generator(device=cuda_device).manual_seed(5),
                     device=cuda_device)
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     got = prefix_scan.cumsum(x)
-    assert prefix_scan.LAUNCHES == 1
+    assert _launches("K2a") == 1
     ref = torch.cumsum(x.double().t().contiguous(), dim=1).t()
     scale = torch.cumsum(x.abs().double().t().contiguous(), dim=1).t() + 1.0
     assert float(((got.double() - ref).abs() / scale).max()) < 1e-5
@@ -137,13 +142,13 @@ def test_oct_sorted_gradient_matches_its_scatter_gradient(cuda_device):
         scatter_enc.table.copy_(sorted_enc.table)
     x = torch.rand((262144, 3), generator=gen, device=cuda_device)
     g = torch.randn((262144, 32), generator=gen, device=cuda_device)
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     out = sorted_enc(x)
     (out * g).sum().backward()
-    assert prefix_scan.LAUNCHES == 1
+    assert _launches("K2a") == 1
     out_scatter = scatter_enc(x)
     (out_scatter * g).sum().backward()
-    assert prefix_scan.LAUNCHES == 1
+    assert _launches("K2a") == 1
     torch.testing.assert_close(out, out_scatter, rtol=0, atol=0)
     want = scatter_enc.table.grad
     atol = 1e-4 * float(want.abs().max())
@@ -157,11 +162,10 @@ def test_hashgrid_backward_launches_one_batched_scan(cuda_device):
     x = torch.rand((4096, 3), generator=gen)
     g = torch.randn((4096, 8), generator=gen)
     enc_gpu = enc.to(cuda_device)
-    prefix_scan.reset_launch_counts()
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     (enc_gpu(x.to(cuda_device)) * g.to(cuda_device)).sum().backward()
-    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 1)
-    assert (hashgrid_grad.PRODUCT_LAUNCHES, hashgrid_grad.FOLD_LAUNCHES) == (1, 1)
+    assert (_launches("K2a"), _launches("K2b")) == (0, 1)
+    assert (_launches("K3a"), _launches("K3b")) == (1, 1)
     grad_gpu = enc_gpu.table.grad.cpu()
     enc_cpu = hashgrid.HashGridEncoding(n_levels=4, n_features=2, log2_table_size=10,
                                         base_resolution=4, max_resolution=64)
@@ -212,14 +216,14 @@ def test_osplit_grad_kernels_match_plain_exactly(cuda_device, points, res, log2_
     sort order, prefix sums and ends: bit for bit."""
     table_size = 2**log2_t
     idx_levels, w_all, g = _osplit_inputs(cuda_device, points, res, log2_t, n_feats)
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     order, vals, csum, ends = _osplit_stages(idx_levels, w_all, g, res, table_size)
-    assert hashgrid_grad.PRODUCT_LAUNCHES == 1
+    assert _launches("K3a") == 1
     assert torch.equal(vals, hashgrid_grad.sorted_products_plain(order, w_all, g))
     offsets = [hashgrid._oct_offsets(r, table_size) for r in res]
     level_rows = hashgrid._oct_level_rows(res, table_size)
     got = hashgrid_grad.fold_segments(csum, ends, offsets, level_rows, table_size)
-    assert hashgrid_grad.FOLD_LAUNCHES == 1
+    assert _launches("K3b") == 1
     want = hashgrid_grad.fold_segments_plain(csum, ends, offsets, level_rows, table_size)
     assert got.shape == (len(res), table_size, n_feats)
     assert torch.equal(got, want)
@@ -258,15 +262,14 @@ def test_osplit_backward_launches_and_counts_at_the_cell_shape(cuda_device):
                         requires_grad=True)
     g = torch.randn((OSPLIT_POINTS, 2 * OSPLIT_LEVELS), generator=gen, device=cuda_device)
     out = hashgrid.OctSplitEncode.apply(x, table, OSPLIT_RES, 2**OSPLIT_LOG2_T)
-    prefix_scan.reset_launch_counts()
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
         (out * g).sum().backward()
         torch.cuda.synchronize()
         counters = tracing.snapshot()["counters"]
-    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 1)
-    assert (hashgrid_grad.PRODUCT_LAUNCHES, hashgrid_grad.FOLD_LAUNCHES) == (1, 1)
+    assert (_launches("K2a"), _launches("K2b")) == (0, 1)
+    assert (_launches("K3a"), _launches("K3b")) == (1, 1)
     assert counters.get("hashgrid.grad_levels") == OSPLIT_LEVELS
 
 
@@ -343,9 +346,9 @@ def test_osplit_encode_matches_plain_exactly(cuda_device, points, res, log2_t, n
     weights and corner rows where asked for; one launch."""
     table_size = 2**log2_t
     x, table = _encode_inputs(cuda_device, points, res, log2_t, n_feats)
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     got = hashgrid._oct_split_forward(x, table, res, table_size, dtype, keys, rows)
-    assert hashgrid_grad.ENCODE_LAUNCHES == 1
+    assert _launches("K4") == 1
     want = hashgrid._oct_split_forward_plain(x, table, res, table_size, dtype, keys, rows)
     _assert_encodes_equal(got, want)
     encoded = hashgrid.encode_oct_split(x, table, res, table_size).to(dtype)
@@ -409,10 +412,9 @@ def test_osplit_table_gradient_is_the_plain_paths(cuda_device, monkeypatch):
     gen = torch.Generator(device=cuda_device).manual_seed(33)
     g = torch.randn((OSPLIT_POINTS, 2 * OSPLIT_LEVELS), generator=gen, device=cuda_device)
     table.requires_grad_(True)
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     (hashgrid.OctSplitEncode.apply(x, table, OSPLIT_RES, table_size) * g).sum().backward()
-    assert (hashgrid_grad.ENCODE_LAUNCHES, hashgrid_grad.PRODUCT_LAUNCHES,
-            hashgrid_grad.FOLD_LAUNCHES) == (1, 1, 1)
+    assert (_launches("K4"), _launches("K3a"), _launches("K3b")) == (1, 1, 1)
     idx_levels, w_all = hashgrid._oct_local_indices_weights(x, OSPLIT_RES, table_size)
     want = hashgrid._oct_split_table_grad(hashgrid._level_keys(idx_levels, table_size), w_all,
                                           g.reshape(OSPLIT_POINTS, OSPLIT_LEVELS, 2), OSPLIT_RES,
@@ -434,7 +436,7 @@ def test_osplit_module_forward_launches_k4_and_makes_no_host_sync(cuda_device):
     with torch.no_grad():
         enc(x)
     torch.cuda.synchronize()
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = enc(x)
@@ -442,7 +444,7 @@ def test_osplit_module_forward_launches_k4_and_makes_no_host_sync(cuda_device):
             plain = enc(x)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert hashgrid_grad.ENCODE_LAUNCHES == 2 and plain.grad_fn is None
+    assert _launches("K4") == 2 and plain.grad_fn is None
     assert torch.equal(out.detach(), plain)
     assert torch.equal(plain, hashgrid.encode_oct_split(x, enc.table.detach(), enc.resolutions,
                                                         enc.table_size))
@@ -463,10 +465,10 @@ def test_osplit_encode_refuses_what_it_does_not_take(cuda_device):
                                     grad_mode="scatter").to(cuda_device)
     with pytest.raises(ValueError, match="scatter"):
         enc(x)
-    hashgrid_grad.reset_launch_counts()
+    cuda_build.reset_launches()
     with torch.no_grad():
         out = enc(x)
-    assert hashgrid_grad.ENCODE_LAUNCHES == 1
+    assert _launches("K4") == 1
     assert torch.equal(out, hashgrid.encode_oct_split(x, enc.table.detach(), enc.resolutions,
                                                       enc.table_size))
 
@@ -479,9 +481,9 @@ def test_osplit_encode_refuses_what_it_does_not_take(cuda_device):
                                    (2, 9000, 128)])
 def test_batched_prefix_scan_matches_plain(cuda_device, shape):
     x = torch.from_numpy(np.random.RandomState(14).randn(*shape).astype(np.float32)).to(cuda_device)
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     got = prefix_scan.cumsum_batched(x)
-    assert prefix_scan.BATCHED_LAUNCHES == 1 and prefix_scan.LAUNCHES == 0
+    assert _launches("K2b") == 1 and _launches("K2a") == 0
     want = prefix_scan.cumsum_batched_plain(x)
     scale = torch.cumsum(x.abs().double(), dim=1) + 1.0
     assert float(((got - want).abs() / scale).max()) < 1e-5
@@ -523,9 +525,9 @@ def test_prefix_scan_takes_narrow_floats(cuda_device, dtype, batched):
     shape = (3, 70001, 16) if batched else (262144, 16)
     x = torch.from_numpy(np.random.RandomState(23).randn(*shape).astype(np.float32))
     x = x.to(dtype).to(cuda_device)
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     got = prefix_scan.cumsum_batched(x) if batched else prefix_scan.cumsum(x)
-    assert (prefix_scan.BATCHED_LAUNCHES, prefix_scan.LAUNCHES) == ((1, 0) if batched else (0, 1))
+    assert (_launches("K2b"), _launches("K2a")) == ((1, 0) if batched else (0, 1))
     want = (prefix_scan.cumsum_batched_plain if batched else prefix_scan.cumsum_plain)(x)
     assert got.dtype == dtype and got.shape == x.shape
     axis = 1 if batched else 0
@@ -535,13 +537,13 @@ def test_prefix_scan_takes_narrow_floats(cuda_device, dtype, batched):
 
 
 def test_prefix_scan_empty_input_launches_nothing(cuda_device):
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     for shape in [(0, 16), (0, 1)]:
         assert prefix_scan.cumsum(torch.empty(shape, device=cuda_device)).shape == shape
     for shape in [(0, 5, 16), (2, 0, 16)]:
         assert prefix_scan.cumsum_batched(torch.empty(shape, device=cuda_device)).shape == shape
     torch.cuda.synchronize()
-    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
+    assert (_launches("K2a"), _launches("K2b")) == (0, 0)
 
 
 def _gather_inputs(device, queries, high, rows, dtype, seed):
@@ -556,9 +558,9 @@ def _gather_inputs(device, queries, high, rows, dtype, seed):
 def test_chunk_take_matches_plain_exactly(cuda_device, queries):
     chunk = chunk_gather.TAKE_CHUNK
     idx, table = _gather_inputs(cuda_device, queries, chunk, chunk, torch.float32, 15)
-    chunk_gather.reset_launch_counts()
+    cuda_build.reset_launches()
     got = chunk_gather.take_from_chunk(idx, table)
-    assert chunk_gather.TAKE_LAUNCHES == 1
+    assert _launches("P1") == 1
     assert torch.equal(got, chunk_gather.take_from_chunk_plain(idx, table))
 
 
@@ -568,9 +570,9 @@ def test_chunk_take_matches_plain_exactly(cuda_device, queries):
     (100003, 4096, 256, 256), (3001, 480, 48, 32)])
 def test_onehot_extract_matches_plain_exactly(cuda_device, queries, rows, chunk, tile):
     idx, table = _gather_inputs(cuda_device, queries, chunk, rows, torch.bfloat16, 16)
-    chunk_gather.reset_launch_counts()
+    cuda_build.reset_launches()
     got = chunk_gather.onehot_extract(idx, table, chunk, tile)
-    assert chunk_gather.ONEHOT_LAUNCHES == 1
+    assert _launches("P2") == 1
     # A one-hot product of bf16 values summed in f32 is exact.
     assert torch.equal(got, chunk_gather.onehot_extract_plain(idx, table, chunk, tile))
 
@@ -591,7 +593,7 @@ def test_onehot_extract_out_of_range_rows_are_zero(cuda_device):
 def test_onehot_extract_tiles_wrap_over_two_chunks(cuda_device):
     """tile = 64 over a table of 2 chunks: 79 tiles, each chunk read by ~40."""
     idx, table = _gather_inputs(cuda_device, 5003, 512, 1024, torch.bfloat16, 20)
-    chunk_gather.reset_launch_counts()
+    cuda_build.reset_launches()
     got = chunk_gather.onehot_extract(idx, table, 512, 64)
-    assert chunk_gather.ONEHOT_LAUNCHES == 1
+    assert _launches("P2") == 1
     assert torch.equal(got, chunk_gather.onehot_extract_plain(idx, table, 512, 64))

@@ -11,13 +11,23 @@ over many empty rows, points whose rows are distinct at every level, and a
 single level. Tolerance: 1e-6 of the largest entry (the two pipelines scan
 the same bf16 products, but an unstable sort may order a row's equal keys
 differently, and a row's sum is a difference of f32 prefix sums); exact
-where no two points share a row, since the sorted order is then unique."""
+where no two points share a row, since the sorted order is then unique.
+
+Also the binding that every kernel of the port shares (`ops/cuda_build.py`):
+each declaration against its export in `csrc/`, and the launch record."""
+
+import contextlib
+import json
+import re
+import threading
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import hashgrid, hashgrid_grad, prefix_scan
+from outdoor_nerf_depth_torch.ops import (chunk_gather, cuda_build, hashgrid, hashgrid_grad,
+                                         prefix_scan, volren_weights)
 from outdoor_nerf_depth_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -76,8 +86,7 @@ def test_one_pass_matches_the_per_level_pipeline(case):
             assert len(set(i.tolist())) == len(x)
     if case == "one_cell":
         assert all(len(set(i.tolist())) == 1 for i in idx_levels)
-    hashgrid_grad.reset_launch_counts()
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     got = hashgrid._oct_split_table_grad(hashgrid._level_keys(idx_levels, T), w_all, g_lf,
                                          res, T)
     want = hashgrid._oct_split_table_grad_per_level(idx_levels, w_all, g_lf, res, T)
@@ -92,8 +101,7 @@ def test_one_pass_matches_the_per_level_pipeline(case):
     assert int((want == 0).all(-1).sum()) > 0
     assert torch.equal(got[(want == 0).all(-1)], torch.zeros_like(got[(want == 0).all(-1)]))
     # The CPU takes the plain versions: no kernel launch is counted.
-    assert (hashgrid_grad.PRODUCT_LAUNCHES, hashgrid_grad.FOLD_LAUNCHES) == (0, 0)
-    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
+    assert set(cuda_build.launches().values()) == {0}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -163,3 +171,73 @@ def test_level_keys_and_segment_ends():
         assert torch.equal(ends[level * T:(level + 1) * T].long(), want)
     with pytest.raises(ValueError, match="int32"):
         hashgrid._level_keys(idx_levels, 2**30)
+
+
+# The four wrappers above declare every kernel of the port.
+KERNELS = cuda_build.kernels()
+C_TYPES = {cuda_build.PTR: "pointer", cuda_build.I32: "int", cuda_build.I64: "long long"}
+
+
+def test_the_wrappers_declare_every_kernel():
+    assert {volren_weights.K1A, volren_weights.K1B, prefix_scan.K2A, prefix_scan.K2B,
+            hashgrid_grad.K3A, hashgrid_grad.K3B, hashgrid_grad.K4, chunk_gather.P1,
+            chunk_gather.P2} == set(KERNELS.values())
+
+
+@pytest.mark.parametrize("kid", sorted(KERNELS))
+def test_declaration_matches_its_export(kid):
+    """The symbol is exported once as `extern "C" int`, its parameters are
+    the declared pointers, ints and long longs, and the last is the stream."""
+    kernel = KERNELS[kid]
+    source = (cuda_build.CSRC_DIR / f"{kernel.source}.cu").read_text()
+    exports = re.findall(rf'extern "C" int {kernel.symbol}\(([^)]*)\)', source)
+    assert len(exports) == 1, exports
+    params = [" ".join(p.split()) for p in exports[0].split(",")]
+    assert len(params) == len(kernel.argtypes) + 1
+    assert params[-1].startswith("cudaStream_t ")
+    kinds = ["pointer" if "*" in p else p.rsplit(" ", 1)[0].removeprefix("const ")
+             for p in params[:-1]]
+    assert kinds == [C_TYPES[t] for t in kernel.argtypes]
+
+
+def test_launch_record(monkeypatch):
+    """Counts by id from any thread, and their reset; a key built only
+    inside a recording, and kept by every recording open; the keys' JSON
+    round trip; a failed launch raised and not counted; and the device
+    policy, which refuses a device that is neither the CPU nor CUDA. The
+    symbol and the stream are stand-ins: the CPU has no kernel to launch."""
+    kernel, codes, built = KERNELS["K4"], [], []
+    monkeypatch.setattr(kernel, "_fn", lambda *args: codes.append(args[-1]) or args[0])
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    dev = torch.device("cpu")
+
+    def launch(key, code=0):
+        kernel(dev, code, key=lambda: built.append(key) or key)
+
+    cuda_build.reset_launches()
+    launch((1,))
+    assert built == [] and codes == [7]
+    with cuda_build.recording() as outer:
+        launch((2, (16, 32), "float32", True))
+        with cuda_build.recording() as inner:
+            thread = threading.Thread(target=launch, args=((3, ((0, 1), (2, 3)), (5,)),))
+            thread.start()
+            thread.join(timeout=60)
+            assert not thread.is_alive()
+    launch((4,))
+    assert built == [(2, (16, 32), "float32", True), (3, ((0, 1), (2, 3)), (5,))]
+    assert inner == {"K4": {(3, ((0, 1), (2, 3)), (5,))}}
+    assert outer == {"K4": {(2, (16, 32), "float32", True), (3, ((0, 1), (2, 3)), (5,))}}
+    merged = {"K4": {(9,)}}
+    cuda_build.merge_keys(merged, json.loads(json.dumps(cuda_build.keys_json(outer))))
+    assert merged == {"K4": outer["K4"] | {(9,)}}
+    with pytest.raises(RuntimeError, match="osplit_encode launch failed: cudaError 2"):
+        launch((5,), code=2)
+    assert cuda_build.launches() == dict.fromkeys(KERNELS, 0) | {"K4": 4}
+    cuda_build.reset_launches()
+    assert cuda_build.launches() == dict.fromkeys(KERNELS, 0)
+    assert cuda_build.use_kernel(torch.ones(2), "osplit encode") is False
+    with pytest.raises(ValueError, match="no osplit encode implementation on meta"):
+        cuda_build.use_kernel(torch.ones(2, device="meta"), "osplit encode")

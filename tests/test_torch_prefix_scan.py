@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import prefix_scan
+from outdoor_nerf_depth_torch.ops import cuda_build, prefix_scan
 from outdoor_nerf_depth_tpu.ops import pallas_scan
 
 torch.set_num_threads(1)
@@ -44,9 +44,9 @@ def test_bad_shapes_raise(shape):
 
 
 def test_cpu_uses_the_plain_version_and_counts_no_launch():
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     prefix_scan.cumsum(torch.ones((10, 16)))
-    assert prefix_scan.LAUNCHES == 0
+    assert cuda_build.launches()["K2a"] == 0
     with pytest.raises(ValueError, match="no prefix-scan implementation"):
         prefix_scan.cumsum(torch.ones((10, 16), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
@@ -79,11 +79,11 @@ def test_batched_bad_shapes_raise(shape, match):
 
 
 def test_batched_cpu_uses_the_plain_version_and_counts_no_launch():
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     x = torch.ones((2, 10, 16), dtype=torch.bfloat16)
     got = prefix_scan.cumsum_batched(x)
     assert got.dtype == torch.bfloat16 and float(got[1, -1, 0]) == 10.0
-    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
+    assert (cuda_build.launches()["K2a"], cuda_build.launches()["K2b"]) == (0, 0)
     with pytest.raises(ValueError, match="no prefix-scan implementation"):
         prefix_scan.cumsum_batched(torch.ones((2, 10, 16), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
@@ -94,9 +94,9 @@ def test_batched_cpu_uses_the_plain_version_and_counts_no_launch():
                                       (prefix_scan.cumsum_batched, (0, 5, 16)),
                                       (prefix_scan.cumsum_batched, (2, 0, 16))])
 def test_empty_input_is_empty_and_counts_no_launch(op, shape):
-    prefix_scan.reset_launch_counts()
+    cuda_build.reset_launches()
     assert op(torch.ones(shape)).shape == shape
-    assert (prefix_scan.LAUNCHES, prefix_scan.BATCHED_LAUNCHES) == (0, 0)
+    assert (cuda_build.launches()["K2a"], cuda_build.launches()["K2b"]) == (0, 0)
 
 
 @pytest.mark.parametrize("batch,rows,lanes,want", [

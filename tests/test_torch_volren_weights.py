@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from outdoor_nerf_depth_torch.ops import volren_weights
+from outdoor_nerf_depth_torch.ops import cuda_build, volren_weights
 from outdoor_nerf_depth_tpu.ops import pallas_volren
 
 # The suite runs files in parallel worker processes: one torch thread per
@@ -99,10 +99,10 @@ def test_infinite_last_tau_is_clamped():
 
 
 def test_cpu_path_launches_no_kernel():
-    volren_weights.reset_launch_counts()
+    cuda_build.reset_launches()
     tau = torch.from_numpy(_random_tau((3, 8))).requires_grad_(True)
     volren_weights.weights_from_tau(tau).sum().backward()
-    assert (volren_weights.FWD_LAUNCHES, volren_weights.BWD_LAUNCHES) == (0, 0)
+    assert (cuda_build.launches()["K1a"], cuda_build.launches()["K1b"]) == (0, 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
